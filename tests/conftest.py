@@ -64,6 +64,10 @@ def pytest_configure(config):
         "slow: multi-minute compile-bound e2e path, skipped unless "
         "--runslow / GDM_RUN_SLOW=1 (fast run keeps a smaller e2e "
         "representative of each path)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the PyTorch port's kernels); skips "
+        "inside the test where torch.cuda.is_available() is False")
 
 
 def pytest_collection_modifyitems(config, items):
