@@ -15,15 +15,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    exceeds 1e-5, ties go to the lowest index.  Median times of both.
 3. Slice: GeoMatch at the LMO widths (4096 points, 4096 mesh vertices,
    256^2 crop, 128-d features) with seeded random weights, served by
-   gdm_tpu.server.PoseService over HTTP from a PoseEngine of batch 8.  A
+   gdm_tpu_torch.server.PoseService over HTTP from a PoseEngine of batch 8.  A
    warm-up and three requests (batch 8, 3, 1) must give finite [b, 3, 4]
    poses whose R is orthonormal with det +1 (or the miss sentinel); the
    kernel must have launched once per served batch; the correspondences
    the engine used must match the plain argmax on the same features.
 
 Output: per-request latency lines, then one JSON line with the kernels,
-then the last line {"ok": true, "device": {...}}.  Nothing of JAX is
-imported: the script blocks ``jax`` and ``flax`` before any import.
+then the last line {"ok": true, "device": {...}}.  Nothing of JAX or of
+the JAX package is imported: the script blocks ``jax``, ``flax`` and
+``gdm_tpu`` before any import, so only ``gdm_tpu_torch`` runs.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ import sys
 import threading
 import time
 
-sys.modules["jax"] = None      # the card's machine runs the port alone
-sys.modules["flax"] = None
+for _name in ("jax", "flax", "gdm_tpu"):   # the port runs alone
+    sys.modules[_name] = None
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -192,14 +193,13 @@ def check_fit_indices(fit, sim, pose_fit):
 
 
 def slice_phase(sim):
-    from gdm_tpu.configs.base import get_config
-    from gdm_tpu.server import PoseService, make_server, request_poses
     from gdm_tpu_torch import weights
+    from gdm_tpu_torch.configs import LMO as cfg
     from gdm_tpu_torch.eval import pose_fit
     from gdm_tpu_torch.models.geomatch import GeoMatch
     from gdm_tpu_torch.serve import PoseEngine
+    from gdm_tpu_torch.server import PoseService, make_server, request_poses
 
-    cfg = get_config("lmo")
     im, n_sample = cfg.data.input_size, cfg.data.num_sample_points
     rng = np.random.RandomState(SEED)
     mesh_fps = make_mesh(cfg.model.n_mesh_node, rng)

@@ -12,7 +12,9 @@ counterpart module by module and imports ``torch``, never ``jax`` or
                     kabsch, backproject, normals, spline_basis
     eval/           pose_fit (seg mask -> similarity argmax -> Kabsch),
                     infer.run_inference
-    serve           PoseEngine, plugged into gdm_tpu.server.PoseService
+    serve           PoseEngine (the meta/run interface of a serving artifact)
+    server          PoseService + HTTP front end, the JAX package's protocol
+    configs         the served shapes and widths (LMO preset)
     weights         loads the reference-named state dict that
                     gdm_tpu.train.import_torch.export_state_dict emits
 """

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gdm_tpu.constants import IMAGENET_MEAN, IMAGENET_STD
+from gdm_tpu_torch.constants import IMAGENET_MEAN, IMAGENET_STD
 from gdm_tpu_torch.models.layers import gather_rows
 from gdm_tpu_torch.ops.backproject import depth_to_xyz
 from gdm_tpu_torch.ops.knn import (

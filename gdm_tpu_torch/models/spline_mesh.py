@@ -2,8 +2,8 @@
 
 Counterpart of gdm_tpu/models/spline_mesh.py.  ``build_mesh_graph`` is a
 numpy copy of the JAX package's host build (which cannot be imported
-without jax); its KNN is the jax-free ``gdm_tpu.native.knn``, and the
-tests hold the two builds bit-equal.  Node features are
+without jax); its exact KNN is a brute-force numpy search, and the tests
+hold the two builds bit-equal.  Node features are
 [imagenet-normalised rgb, xyz in metres, normal] (9-d).
 """
 
@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gdm_tpu.constants import IMAGENET_MEAN, IMAGENET_STD
+from gdm_tpu_torch.constants import IMAGENET_MEAN, IMAGENET_STD
 from gdm_tpu_torch.models.layers import Dense
 from gdm_tpu_torch.ops.spline_basis import (
     cartesian_pseudo,
@@ -36,6 +36,23 @@ class MeshGraph:
     slot: np.ndarray         # [n, k, 8]
 
 
+def knn_np(pts: np.ndarray, k: int, chunk: int = 256) -> np.ndarray:
+    """Exact self-KNN on the host: [n, 3] -> idx [n, k] by ascending
+    squared distance, ties to the lower index (a stable sort of each
+    distance row); rows of ``chunk`` queries bound the scratch memory.
+    With k > n the last neighbour repeats, as in gdm_tpu.native.knn."""
+    pts = np.ascontiguousarray(pts, np.float32)
+    out = []
+    for i in range(0, len(pts), chunk):
+        d2 = ((pts[i:i + chunk, None, :] - pts[None, :, :]) ** 2).sum(-1)
+        out.append(np.argsort(d2, axis=1, kind="stable")[:, :k])
+    idx = np.concatenate(out).astype(np.int32)
+    if idx.shape[1] < k:
+        idx = np.concatenate(
+            [idx, np.repeat(idx[:, -1:], k - idx.shape[1], 1)], axis=1)
+    return idx
+
+
 def build_mesh_graph(fps_data: np.ndarray, n_nodes: int,
                      kernel_size: int = 5, k: int = 4) -> MeshGraph:
     """The static graph of an ``obj_XXXXXX_fps.npy`` array.
@@ -44,15 +61,13 @@ def build_mesh_graph(fps_data: np.ndarray, n_nodes: int,
       fps_data: [m, 9]: xyz in mm, rgb 0..255, normals.
       n_nodes: vertices to keep (config ``model.n_mesh_node``).
     """
-    from gdm_tpu import native
-
     pts = fps_data[:n_nodes, :3].astype(np.float32) / 1000.0
     rgb = fps_data[:n_nodes, 3:6].astype(np.float32)
     nrm = fps_data[:n_nodes, 6:9].astype(np.float32)
     rgb_n = (rgb / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
     node_x = np.concatenate([rgb_n, pts, nrm], axis=1).astype(np.float32)
 
-    neigh = native.knn(pts, pts, k + 1)[:, 1:].astype(np.int32)
+    neigh = knn_np(pts, k + 1)[:, 1:]
     basis, slot = spline_basis_np(cartesian_pseudo(pts, neigh),
                                   kernel_size=kernel_size)
     return MeshGraph(xyz=pts, node_x=node_x, neigh_idx=neigh, basis=basis,

@@ -3,12 +3,19 @@
 Counterpart of gdm_tpu/serve.py's ServingArtifact: the same ``meta``
 (``raw_spec`` = {key: [shape, dtype]} of the loader's ship format),
 ``finalize``, ``infer`` and ``run(raw) -> numpy poses [B, 3, 4]``, so it
-plugs unchanged into gdm_tpu.server.PoseService and make_server.  Where
-the JAX artifact bakes a traced program, the engine holds the model, the
-object's mesh graph and its mesh features, encoded once at construction.
+plugs into gdm_tpu_torch.server.PoseService (and, unchanged, into the JAX
+package's).  Where the JAX artifact bakes a traced program, the engine
+holds the model, the object's mesh graph and its mesh features, encoded
+once at construction.
+
+The configuration computes in f32.  cuDNN allows TF32 convolutions by
+default, so the engine turns TF32 off for matmuls and convolutions around
+its own device work (:func:`full_f32`) whatever the caller has set.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -18,6 +25,21 @@ from gdm_tpu_torch.data.pipeline import finalize_batch, to_device
 from gdm_tpu_torch.eval.infer import run_inference
 from gdm_tpu_torch.models.geomatch import GeoMatch, MeshArrays
 from gdm_tpu_torch.models.spline_mesh import build_mesh_graph
+
+
+@contextlib.contextmanager
+def full_f32():
+    """TF32 off for CUDA matmuls and cuDNN convolutions inside the block;
+    the previous process-wide settings come back after it."""
+    mm = torch.backends.cuda.matmul.allow_tf32
+    cd = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+        torch.backends.cudnn.allow_tf32 = cd
 
 
 def raw_input_spec(batch: int, im_size: int, n_sample: int) -> dict:
@@ -39,7 +61,7 @@ class PoseEngine:
     """GeoMatch inference for one object on one device.
 
     Args:
-      config: a gdm_tpu.configs.base.Config (shapes and model widths).
+      config: shapes and model widths (gdm_tpu_torch.configs.Config).
       mesh_fps: [m, 9] object array (xyz mm | rgb | normal).
       state_dict: reference-named weights (numpy or tensors).
       device: torch device; "cuda" raises when CUDA is absent.
@@ -48,8 +70,6 @@ class PoseEngine:
 
     def __init__(self, config, mesh_fps: np.ndarray, state_dict: dict,
                  device, batch: int):
-        if config.data.fill_depth:
-            raise NotImplementedError("fill_depth configs are not ported")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} asked for, but CUDA is "
@@ -63,7 +83,7 @@ class PoseEngine:
                                  kernel_size=m.spline_kernel,
                                  k=m.mesh_knn_k)
         self.mesh = MeshArrays.from_graph(graph, self.device)
-        with torch.no_grad():
+        with torch.no_grad(), full_f32():
             self.mesh_feats = self.model.encode_mesh(self.mesh)
         self.meta = {
             "raw_spec": raw_input_spec(batch, config.data.input_size,
@@ -86,8 +106,9 @@ class PoseEngine:
 
     def infer(self, fin: dict) -> torch.Tensor:
         """Finalized batch -> poses [B, 3, 4] on the device."""
-        poses, self.last_fit = run_inference(self.model, fin, self.mesh,
-                                             self.mesh_feats)
+        with full_f32():
+            poses, self.last_fit = run_inference(self.model, fin, self.mesh,
+                                                 self.mesh_feats)
         return poses
 
     def run(self, raw: dict) -> np.ndarray:

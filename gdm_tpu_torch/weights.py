@@ -10,8 +10,10 @@ layouts need care:
     reference dicts hold its tensors under ``cnn_up_stages.2.0.0.*`` and
     ``cnn_up_stages.3.1.0.*``; the port registers it once, at 2.0.0, and
     takes the duplicate only when the first name is missing;
-  * point convs may be stored as [out, in, 1] or [out, in, 1, 1]; a
-    tensor whose element count matches is reshaped to the port's shape.
+  * point convs of torch checkpoints are stored as [out, in, 1] or
+    [out, in, 1, 1]; the port's [out, in] takes them with their trailing
+    unit dimensions dropped.  Any other shape difference raises, so a
+    transposed or reordered weight never loads scrambled.
 
 BatchNorm ``num_batches_tracked`` buffers are part of the port's state
 and load like any other entry.
@@ -38,20 +40,21 @@ ALIASES = {
 def load_reference_state_dict(module: nn.Module, state: dict) -> None:
     """Load a reference-named state dict into ``module``, strictly.
 
-    Raises on a missing or unexpected key (aliases and a leading
-    ``module.`` excepted) and on a shape that does not match."""
+    Raises on a missing or unexpected key (aliases excepted) and on a
+    shape that does not match (unit dimensions of a point conv
+    excepted)."""
     own = module.state_dict()
     out = {}
     for key, val in state.items():
-        key = key[len("module."):] if key.startswith("module.") else key
         if key in ALIASES:
             if ALIASES[key] in state:
                 continue
             key = ALIASES[key]
         t = val if isinstance(val, torch.Tensor) \
             else torch.tensor(np.asarray(val))
-        if key in own and t.shape != own[key].shape \
-                and t.numel() == own[key].numel():
+        if key in own and own[key].dim() == 2 and t.dim() > 2 \
+                and t.shape[:2] == own[key].shape \
+                and all(d == 1 for d in t.shape[2:]):
             t = t.reshape(own[key].shape)
         out[key] = t
     module.load_state_dict(out, strict=True)

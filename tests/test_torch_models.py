@@ -77,6 +77,19 @@ def test_mesh_graph_bit_equal(problem, field):
     np.testing.assert_array_equal(a, b)
 
 
+def test_mesh_graph_bit_equal_at_lmo_size():
+    """The numpy exact KNN of the port against gdm_tpu.native's KD-tree,
+    through the whole graph build, at the served 4096 vertices."""
+    from gdm_tpu.data.synthetic import make_object
+    from gdm_tpu.models.spline_mesh import build_mesh_graph as build_j
+
+    fps = make_object(4096, np.random.RandomState(1), radius=0.08)
+    a, b = build_mesh_graph(fps, 4096), build_j(fps, 4096)
+    for field in ("node_x", "neigh_idx", "basis", "slot"):
+        np.testing.assert_array_equal(getattr(a, field), getattr(b, field),
+                                      err_msg=field)
+
+
 @pytest.mark.parametrize("n_in,n_out", [(1, 8), (8, 16), (32, 32), (6, 32),
                                         (13, 4)])
 def test_resize_and_pool_matrices(n_in, n_out):

@@ -3,8 +3,10 @@
 the port's PoseEngine under the same weights.  The fg mask and the Kabsch
 weights are equal and the correspondences agree up to near-ties; fitted
 poses under random weights are not compared.  The engine then serves the
-same request over gdm_tpu.server's HTTP service."""
+same request over the port's HTTP service, and over the JAX package's,
+which it plugs into unchanged."""
 
+import dataclasses
 import threading
 
 import numpy as np
@@ -12,17 +14,19 @@ import pytest
 import torch
 
 import _torch_harness as H
-from gdm_tpu_torch.serve import PoseEngine, raw_input_spec
+from gdm_tpu_torch import configs
+from gdm_tpu_torch import server as server_t
+from gdm_tpu_torch.serve import PoseEngine, full_f32, raw_input_spec
 
 torch.set_num_threads(1)
 
 
 def _tiny_config():
-    from gdm_tpu.configs.base import get_config
-
-    return get_config("lmo", [f"data.input_size={H.IM}",
-                              f"data.num_sample_points={H.N_SAMPLE}",
-                              f"model.n_mesh_node={H.N_MESH}"])
+    lmo = configs.LMO
+    return configs.Config(
+        data=dataclasses.replace(lmo.data, input_size=H.IM,
+                                 num_sample_points=H.N_SAMPLE),
+        model=dataclasses.replace(lmo.model, n_mesh_node=H.N_MESH))
 
 
 def _split_seg_bias(params, seg):
@@ -153,29 +157,144 @@ def test_engine_refuses_cuda_when_absent():
                    batch=H.B)
 
 
-def test_http_service_answers_like_engine(slice_run):
-    """PoseService + make_server on 127.0.0.1:0 over the CPU engine: a
-    full and a short (padded) request give the engine's poses."""
-    from gdm_tpu.server import PoseService, make_server, request_poses
-
-    r = slice_run
-    service = PoseService({"obj": r["engine"]})
-    server = make_server(service, host="127.0.0.1", port=0)
+def _serve_and_compare(engine, raw, service_mod):
+    """PoseService + make_server of ``service_mod`` on 127.0.0.1:0 over
+    ``engine``: a full and a short (padded) request give the engine's
+    poses."""
+    service = service_mod.PoseService({"obj": engine})
+    server = service_mod.make_server(service, host="127.0.0.1", port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
         host, port = server.server_address[:2]
         url = f"http://{host}:{port}"
-        poses, ms = request_poses(url, r["raw"])
-        np.testing.assert_array_equal(poses, r["engine"].run(r["raw"]))
+        poses, ms = service_mod.request_poses(url, raw)
+        np.testing.assert_array_equal(poses, engine.run(raw))
         assert ms > 0
-        short = {k: v[:1] for k, v in r["raw"].items()}
-        padded = {k: np.concatenate([v[:1], v[:1]]) for k, v in
-                  r["raw"].items()}
-        poses1, _ = request_poses(url, short)
-        np.testing.assert_array_equal(poses1, r["engine"].run(padded)[:1])
+        short = {k: v[:1] for k, v in raw.items()}
+        padded = {k: np.concatenate([v[:1], v[:1]]) for k, v in raw.items()}
+        poses1, _ = service_mod.request_poses(url, short)
+        np.testing.assert_array_equal(poses1, engine.run(padded)[:1])
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
     assert not thread.is_alive()
+
+
+def test_http_service_answers_like_engine(slice_run):
+    """The port's own HTTP service over the CPU engine."""
+    _serve_and_compare(slice_run["engine"], slice_run["raw"], server_t)
+
+
+def test_jax_package_service_serves_engine_unchanged(slice_run):
+    """gdm_tpu.server takes the engine as it takes a JAX artifact."""
+    from gdm_tpu import server as server_j
+
+    _serve_and_compare(slice_run["engine"], slice_run["raw"], server_j)
+
+
+def test_engine_computes_with_tf32_off(slice_run, monkeypatch):
+    """infer runs the model with TF32 off for matmuls and convolutions,
+    whatever the caller set, and leaves the caller's settings as they
+    were."""
+    import gdm_tpu_torch.serve as serve_t
+
+    seen = []
+    real = serve_t.run_inference
+
+    def spy(*args):
+        seen.append((torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32))
+        return real(*args)
+
+    monkeypatch.setattr(serve_t, "run_inference", spy)
+    engine = slice_run["engine"]
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        poses = engine.run(slice_run["raw"])
+        assert seen == [(False, False)]
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
+        with pytest.raises(ValueError), full_f32():
+            raise ValueError       # restored on the way out of an error
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before[0]
+        torch.backends.cudnn.allow_tf32 = before[1]
+    np.testing.assert_array_equal(poses, slice_run["poses_t"])
+
+
+def test_lmo_config_matches_jax_preset():
+    """Every field of the port's LMO equals the JAX package's preset."""
+    from gdm_tpu.configs.base import get_config
+
+    ref = get_config("lmo")
+    for part in ("data", "model"):
+        for f in dataclasses.fields(getattr(configs.LMO, part)):
+            want = getattr(getattr(ref, part), f.name)
+            got = getattr(getattr(configs.LMO, part), f.name)
+            assert tuple(got) == tuple(want) if isinstance(want, (
+                tuple, list)) else got == want, (part, f.name)
+
+
+class _FakeEngine:
+    """meta + run, as PoseService needs; poses are the batch index."""
+
+    def __init__(self, batch=4):
+        self.meta = {"raw_spec": raw_input_spec(batch, 8, 16)}
+        self.platforms = ("cpu",)
+
+    def run(self, raw):
+        b = raw["det"].shape[0]
+        return np.arange(b, dtype=np.float32)[:, None, None] \
+            * np.ones((b, 3, 4), np.float32)
+
+
+@pytest.mark.parametrize("case,code", [
+    ("missing", 400), ("extra", 400), ("dtype", 400), ("shape", 400),
+    ("ragged_batch", 400), ("too_big", 400), ("unknown_obj", 404)])
+def test_service_rejects_bad_requests(case, code):
+    svc = server_t.PoseService({"a": _FakeEngine()})
+    raw = server_t.synthetic_raw(raw_input_spec(2, 8, 16))
+    obj = None
+    if case == "missing":
+        del raw["det"]
+    elif case == "extra":
+        raw["dpt_filled"] = np.zeros((2, 8, 8), np.float32)
+    elif case == "dtype":
+        raw["choose"] = raw["choose"].astype(np.int64)
+    elif case == "shape":
+        raw["rgb_u8"] = raw["rgb_u8"][:, :4]
+    elif case == "ragged_batch":
+        raw["det"] = raw["det"][:1]
+    elif case == "too_big":
+        raw = server_t.synthetic_raw(raw_input_spec(5, 8, 16))
+    else:
+        obj = "b"
+    with pytest.raises(server_t.RequestError) as e:
+        svc.run(obj, raw)
+    assert e.value.code == code
+
+
+def test_service_pads_short_batches_and_warms_up():
+    svc = server_t.PoseService({"a": _FakeEngine()})
+    raw = server_t.synthetic_raw(raw_input_spec(3, 8, 16))
+    poses, ms = svc.run(None, raw)
+    np.testing.assert_array_equal(poses, _FakeEngine().run(raw))
+    assert ms >= 0
+    svc.warmup()
+
+
+def test_synthetic_raw_matches_jax_fill():
+    from gdm_tpu.serve import synthetic_raw as fill_j
+
+    spec = raw_input_spec(2, 16, 32)
+    got, want = server_t.synthetic_raw(spec), fill_j(spec)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -67,30 +67,48 @@ def test_alias_name_alone_loads(exported):
 
 
 def test_reference_conv_ranks_and_module_prefix_load(exported):
-    """Reference checkpoints store point convs as [out, in, 1] and may
-    carry DataParallel's 'module.' prefix."""
-    sd = {}
-    for k, v in exported.items():
-        v = np.asarray(v)
-        if k.endswith("conv.weight") and v.ndim == 2:
-            v = v[..., None]
-        sd["module." + k] = v
-    m = GeoMatch()
-    weights.load_reference_state_dict(m, sd)
-    key = "seg_layer.0.conv.weight"
-    np.testing.assert_array_equal(m.state_dict()[key].numpy(),
-                                  exported[key])
+    """Torch checkpoints store point convs as [out, in, 1] or
+    [out, in, 1, 1]: those load.  A DataParallel 'module.' prefix is not
+    stripped: it is an unexpected key, and the strict load raises."""
+    for unit in ((1,), (1, 1)):
+        sd = {}
+        for k, v in exported.items():
+            v = np.asarray(v)
+            if k.endswith("conv.weight") and v.ndim == 2:
+                v = v.reshape(v.shape + unit)
+            sd[k] = v
+        m = GeoMatch()
+        weights.load_reference_state_dict(m, sd)
+        key = "seg_layer.0.conv.weight"
+        np.testing.assert_array_equal(m.state_dict()[key].numpy(),
+                                      exported[key])
+    with pytest.raises(RuntimeError, match="module.seg_layer"):
+        weights.load_reference_state_dict(
+            GeoMatch(), {"module." + k: v for k, v in exported.items()})
 
 
-@pytest.mark.parametrize("case", ["missing", "unexpected", "shape"])
+@pytest.mark.parametrize("case", ["missing", "unexpected", "shape",
+                                  "transposed", "conv_reordered"])
 def test_strict_load_raises(exported, case):
+    """Every mismatch raises; a weight with the right element count in
+    another layout (a transposed point conv, a [k, k, in, out] conv) is a
+    shape mismatch, never reshaped into place."""
     sd = dict(exported)
     if case == "missing":
         del sd["seg_layer.3.conv.bias"]
     elif case == "unexpected":
         sd["seg_layer.9.conv.weight"] = np.zeros((2, 2), np.float32)
-    else:
+    elif case == "shape":
         sd["seg_layer.3.conv.bias"] = np.zeros((3,), np.float32)
+    elif case == "transposed":
+        key = next(k for k, v in sd.items() if k.endswith("conv.weight")
+                   and np.asarray(v).ndim == 2
+                   and np.asarray(v).shape[0] != np.asarray(v).shape[1])
+        sd[key] = np.asarray(sd[key]).T
+    else:
+        key = next(k for k, v in sd.items() if np.asarray(v).ndim == 4
+                   and np.asarray(v).shape[0] != np.asarray(v).shape[-1])
+        sd[key] = np.asarray(sd[key]).transpose(2, 3, 1, 0)
     with pytest.raises(RuntimeError):
         weights.load_reference_state_dict(GeoMatch(), sd)
 
