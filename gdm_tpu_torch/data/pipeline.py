@@ -158,7 +158,8 @@ def build_pyramid(cld: torch.Tensor, xyz_img: torch.Tensor,
 
 
 def assemble_inputs(rgb: torch.Tensor, cld_rgb_nrm: torch.Tensor,
-                    choose: torch.Tensor, xyz_img: torch.Tensor) -> dict:
+                    choose: torch.Tensor, xyz_img: torch.Tensor,
+                    knn_chunk: int = 1024) -> dict:
     """Model-input dict: finalized tensors + the exact index pyramid."""
     return {"rgb": rgb, "cld_rgb_nrm": cld_rgb_nrm, "choose": choose,
-            **build_pyramid(cld_rgb_nrm[..., :3], xyz_img)}
+            **build_pyramid(cld_rgb_nrm[..., :3], xyz_img, knn_chunk)}

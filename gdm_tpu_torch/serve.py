@@ -66,10 +66,12 @@ class PoseEngine:
       state_dict: reference-named weights (numpy or tensors).
       device: torch device; "cuda" raises when CUDA is absent.
       batch: the served batch; PoseService pads shorter requests to it.
+      knn_chunk: queries per distance block of the KNN pyramid (peak
+        memory; no result changes with it).
     """
 
     def __init__(self, config, mesh_fps: np.ndarray, state_dict: dict,
-                 device, batch: int):
+                 device, batch: int, knn_chunk: int = 1024):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} asked for, but CUDA is "
@@ -79,6 +81,7 @@ class PoseEngine:
                               spline_kernel=m.spline_kernel)
         weights.load_reference_state_dict(self.model, state_dict)
         self.model.to(self.device).eval()
+        self.knn_chunk = knn_chunk
         graph = build_mesh_graph(mesh_fps, m.n_mesh_node,
                                  kernel_size=m.spline_kernel,
                                  k=m.mesh_knn_k)
@@ -107,8 +110,8 @@ class PoseEngine:
     def infer(self, fin: dict) -> torch.Tensor:
         """Finalized batch -> poses [B, 3, 4] on the device."""
         with full_f32():
-            poses, self.last_fit = run_inference(self.model, fin, self.mesh,
-                                                 self.mesh_feats)
+            poses, self.last_fit = run_inference(
+                self.model, fin, self.mesh, self.mesh_feats, self.knn_chunk)
         return poses
 
     def run(self, raw: dict) -> np.ndarray:

@@ -22,6 +22,7 @@ and load like any other entry.
 from __future__ import annotations
 
 import math
+import os.path as osp
 
 import numpy as np
 import torch
@@ -35,6 +36,22 @@ ALIASES = {
     "pcd_emb.cnn_up_stages.3.1.0.weight": "pcd_emb.cnn_up_stages.2.0.0.weight",
     "pcd_emb.cnn_up_stages.3.1.0.bias": "pcd_emb.cnn_up_stages.2.0.0.bias",
 }
+
+
+def read_reference_checkpoint(dir_or_file: str) -> dict:
+    """The reference-named state dict of a reference checkpoint:
+    ``<dir>/geomatch.pth.tar`` (train_lm.py:331-340) or the file itself,
+    read with ``weights_only=True`` (a state dict needs no pickled code),
+    under its ``model_state`` key when it has one.
+
+    The JAX package imports such a file with ``strict=False`` and keeps
+    its init for missing leaves; the port has no trained init to keep, so
+    :func:`load_reference_state_dict` raises on a missing key."""
+    path = dir_or_file
+    if osp.isdir(path):
+        path = osp.join(path, "geomatch.pth.tar")
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    return blob.get("model_state", blob)
 
 
 def load_reference_state_dict(module: nn.Module, state: dict) -> None:

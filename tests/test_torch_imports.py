@@ -1,7 +1,7 @@
 """The PyTorch port runs where JAX is not installed and without the JAX
 package: every module of gdm_tpu_torch loads with jax, flax and gdm_tpu
 blocked, and no source file of the port (chip_smoke.py included) imports
-them."""
+them, nor cv2, PIL or tabulate, which the GPU host lacks."""
 
 import os
 import os.path as osp
@@ -42,15 +42,27 @@ def test_every_module_imports_without_jax():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
 
 
-@pytest.mark.parametrize("path", [
-    osp.relpath(osp.join(d, f), ROOT)
-    for d, _, files in os.walk(PKG) for f in sorted(files)
-    if f.endswith(".py")] + ["chip_smoke.py"])
+SOURCES = [osp.relpath(osp.join(d, f), ROOT)
+           for d, _, files in os.walk(PKG) for f in sorted(files)
+           if f.endswith(".py")] + ["chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", SOURCES)
 def test_source_never_imports_jax(path):
     src = open(osp.join(ROOT, path)).read()
     assert not re.search(
         r"^\s*(import (jax|flax|gdm_tpu)\b|from (jax|flax|gdm_tpu)\b)", src,
         re.M), path
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_source_never_imports_cv2_pil_or_tabulate(path):
+    """The GPU host has none of them: the port decodes PNGs, crops and
+    formats tables itself."""
+    src = open(osp.join(ROOT, path)).read()
+    assert not re.search(
+        r"^\s*(import (cv2|PIL|tabulate)\b|from (cv2|PIL|tabulate)\b)",
+        src, re.M), path
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
