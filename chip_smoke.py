@@ -33,6 +33,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    give the eval CSV's rows and poses, and ``cli score`` of the eval CSV
    its recalls and AUC exactly.  Prints per-batch device ms, the loader's
    ms/sample, frames/s end to end and peak device memory.
+5. Train: a synthetic LM-O tree (object 1, 120 JPEG ``train_pbr`` frames
+   and 48 ``test`` frames) goes through ``gdm_tpu_torch.cli train`` at the
+   LM-O widths and ``train_batch_size`` 24: two epochs validating each
+   (the similarity kernel must launch), then ``--epochs 3 --resume``
+   (one more epoch, from the checkpoint), then ``cli eval
+   --torch-checkpoint <ckpt_root>/checkpoints`` of the result.  Then: the
+   train step on the card against the same step on the CPU from the same
+   state and batch at a small size (loss within 1e-4; gradients within
+   1e-3, or within 4x the spread the CPU's own f32 gradient shows when
+   its inputs move by a relative 1e-7); 30 steps on one fixed batch of
+   24 at full width, whose last 5 losses must average below the first
+   5; the step split (inputs, forward, backward, optimizer) and
+   device-only samples/s, the loader's ms/sample in train mode by stage,
+   the loader-wait share of the train run and its peak device memory.
 
 Output: per-request latency lines, then one JSON line with the kernels,
 the card's name and power limit, and the last line {"ok": true,
@@ -65,6 +79,7 @@ SEED = 0
 SERVE_SHAPE = (8 * 4096, 4096, 128)      # R, M, C at the served batch 8
 EVAL_SHAPE = (128 * 4096, 4096, 128)     # R, M, C at the LM-O eval batch
 EVAL_FRAMES = 160
+TRAIN_FRAMES, VAL_FRAMES, TRAIN_BATCH = 120, 48, 24
 
 
 def log(*args):
@@ -471,6 +486,331 @@ def eval_phase(sim, workdir):
     return launches
 
 
+def write_train_tree(root):
+    """LM-O object 1: TRAIN_FRAMES JPEG train_pbr frames, VAL_FRAMES test
+    frames (PNG, with detections) at 480x640."""
+    from gdm_tpu_torch.configs import LMO as cfg
+    from gdm_tpu_torch.data.synthetic import make_object, \
+        write_synthetic_bop_root
+
+    fps = make_object(cfg.data.model_pt_num, np.random.RandomState(SEED))
+    write_synthetic_bop_root(root, fps, n_frames=TRAIN_FRAMES,
+                             subsets=("train_pbr",), im_hw=cfg.data.img_hw,
+                             seed=SEED + 1, obj_id=1)
+    write_synthetic_bop_root(root, fps, n_frames=VAL_FRAMES,
+                             subsets=("test",), im_hw=cfg.data.img_hw,
+                             seed=SEED + 2, obj_id=1)
+
+
+def loader_stages(cfg, root, n=24):
+    """ms/sample of the train loader's stages on one thread: JPEG decode,
+    the depth and mask decode, the three crops, the HPR hull, the
+    radius-NN GT match, and whole samples (1 thread, then 8 threads and
+    8 processes)."""
+    from gdm_tpu_torch.data import bop, crop, gt_gen, imio
+    from gdm_tpu_torch.data.dataset import PoseDataset
+    from gdm_tpu_torch.data.loader import DataLoader
+
+    ds = PoseDataset(cfg, 1, "train", data_root=root)
+    recs = ds.annos[:n]
+    t = {}
+
+    def clock(name, fn):
+        t0 = time.perf_counter()
+        out = [fn(r) for r in recs]
+        t[name] = (time.perf_counter() - t0) * 1e3 / len(recs)
+        return out
+
+    rgbs = clock("jpeg decode (rgb)", lambda r: imio.imread_rgb(r.rgb_file))
+    others = clock("png decode (depth + mask)", lambda r: (
+        imio.imread_u16(r.depth_file), imio.imread_mask(r.mask_file)))
+    frames = {id(r): (a, *b) for r, a, b in zip(recs, rgbs, others)}
+    rng = np.random.RandomState(SEED)
+    d, S = cfg.data, cfg.data.input_size
+
+    def crops(r):
+        rgb, dpt, mask = frames[id(r)]
+        c, s = bop.aug_bbox_dzi(r.bbox, rng, d.dzi_scale_ratio,
+                                d.dzi_shift_ratio, d.dzi_pad_ratio,
+                                tuple(d.img_hw))
+        crop.crop_resize_by_warp_affine(rgb, c, s, S,
+                                        interpolation=crop.INTER_LINEAR)
+        for img in (dpt, mask):
+            crop.crop_resize_by_warp_affine(
+                img, c, s, S, interpolation=crop.INTER_NEAREST)
+
+    clock("crops (rgb linear, depth and mask nearest)", crops)
+    vis = clock("HPR hull (pose_visibility)", lambda r: gt_gen.pose_visibility(
+        r.pose, ds.mesh_pts, cfg.data.hpr_radius_param))
+    pts = ds.mesh_pts @ recs[0].pose[:, :3].T + recs[0].pose[:, 3]
+    t0 = time.perf_counter()
+    for v in vis:
+        gt_gen.radius_nn(pts[v > 0], pts, 0.01)
+    t["radius NN (GT match)"] = (time.perf_counter() - t0) * 1e3 / len(vis)
+    t0 = time.perf_counter()
+    for i in range(n):
+        ds[i]
+    t["whole sample, 1 thread (hull cached after its first use)"] = \
+        (time.perf_counter() - t0) * 1e3 / n
+    for kind in ("thread", "process"):
+        dl = DataLoader(ds, TRAIN_BATCH, num_workers=8, workers=kind)
+        t0 = time.perf_counter()
+        k = sum(b["rgb_u8"].shape[0] for b, _ in dl)
+        t[f"whole sample, 8 {kind} workers"] = (time.perf_counter() - t0) * 1e3 / k
+    for name, ms in t.items():
+        log(f"  loader (train mode) {name}: {ms:.3f} ms/sample")
+    return t
+
+
+def train_model(cfg, dropout=True):
+    from gdm_tpu_torch import weights
+    from gdm_tpu_torch.models.geomatch import GeoMatch
+
+    model = GeoMatch(cfg.model.feat_dim, tuple(cfg.model.randla_d_out),
+                     spline_kernel=cfg.model.spline_kernel, awl=True,
+                     dropout=dropout)
+    weights.init_random_(model, torch.Generator().manual_seed(SEED))
+    return model
+
+
+def object_mesh(cfg, root, device):
+    from gdm_tpu_torch.data.ply import load_or_build_fps_mesh
+    from gdm_tpu_torch.models.geomatch import MeshArrays
+    from gdm_tpu_torch.models.spline_mesh import build_mesh_graph
+
+    fps = load_or_build_fps_mesh(root, 1, cfg.data.model_pt_num)
+    fps_mm = np.concatenate([fps[:, :3] * 1000.0, fps[:, 3:]], axis=1)
+    return MeshArrays.from_graph(build_mesh_graph(
+        fps_mm, cfg.model.n_mesh_node), device)
+
+
+def step_parity(root):
+    """The train step on the card against the CPU's from the same state
+    and inputs, at a small size (B 4, 1024 points, 64^2 crop, 64 mesh
+    vertices; full model widths; dropout off; TF32 off).  The inputs
+    (finalize + KNN pyramid) are made once, on the CPU: the two devices'
+    distance blocks round differently, and a flipped near-tie neighbour
+    would change the function compared.  The loss must agree within
+    1e-4.  This model's train-mode f32 gradients move by ~1e-3..1 per
+    tensor when the inputs move by f32's rounding (see
+    tests/test_torch_train.py; printed here as the CPU's spread s_t, the
+    largest change of its f32 gradient when the float inputs move by a
+    relative 1e-7, two draws), so few tensors can agree within 1e-3 and
+    the gradients are held to the CPU's float64 gradient as a whole: the
+    card's f32 gradient must lie no further from it, in L2 over every
+    parameter, than 2x the CPU's f32 gradient does, plus 1e-3."""
+    import copy
+
+    from gdm_tpu_torch import configs
+    from gdm_tpu_torch.data.dataset import PoseDataset
+    from gdm_tpu_torch.data.loader import collate
+    from gdm_tpu_torch.data.pipeline import finalize_batch, to_device
+    from gdm_tpu_torch.train import schedules
+    from gdm_tpu_torch.train.state import create_train_state
+    from gdm_tpu_torch.train.step import BATCH_KEYS, make_train_step, \
+        train_inputs
+
+    cfg = configs.get_config("lmo", [
+        "data.input_size=64", "data.num_sample_points=1024",
+        "data.model_pt_num=64", "model.n_mesh_node=64"])
+    ds = PoseDataset(cfg, 1, "train", data_root=root)
+    batch, _ = collate([ds[i] for i in range(4)])
+    with torch.no_grad():
+        inputs = train_inputs(finalize_batch(to_device(
+            {k: batch[k] for k in BATCH_KEYS}, "cpu")), positive_r(cfg), 512)
+    base = train_model(cfg, dropout=False)
+    step = make_train_step(schedules.bn_momentum_schedule(),
+                           positive_r(cfg), knn_chunk=512)
+
+    def run(device, inp, dtype=torch.float32):
+        model = copy.deepcopy(base).to(device, dtype)
+        state = create_train_state(
+            model, schedules.cyclic_lr(1e-6, 1e-3, 10), 0.0, 5)
+        mesh = object_mesh(cfg, root, device)
+        mesh = type(mesh)(*[x.to(dtype) if x is not None
+                            and x.is_floating_point() else x for x in mesh])
+        m = step(state, {k: v.to(device, dtype) if v.is_floating_point()
+                         else v.to(device) for k, v in inp.items()},
+                 mesh, SEED)
+        return float(m["loss"]), {k: p.grad.detach().cpu().numpy()
+                                  for k, p in model.named_parameters()}
+
+    loss_g, g_gpu = run("cuda", inputs)
+    loss_c, g_cpu = run("cpu", inputs)
+    _, g_64 = run("cpu", inputs, torch.float64)
+    gen = torch.Generator().manual_seed(SEED)
+    spread = dict.fromkeys(g_cpu, 0.0)
+    for _ in range(2):
+        moved = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+                 if v.is_floating_point() and k != "positive_r" else v
+                 for k, v in inputs.items()}
+        _, g = run("cpu", moved)
+        for k in g_cpu:
+            spread[k] = max(spread[k], rel(g[k], g_cpu[k]))
+    dloss = abs(loss_g - loss_c) / abs(loss_c)
+    errs = {k: rel(g_gpu[k], g_cpu[k]) for k in g_cpu}
+    direct = sum(e <= 1e-3 for e in errs.values())
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    log(f"  step parity (B 4, 1024 points, 64^2 crop, inputs made on the "
+        f"CPU): loss GPU {loss_g:.6f} CPU {loss_c:.6f} (|d|/|ref| "
+        f"{dloss:.3g}); gradient tensors within 1e-3 of the CPU's: {direct} "
+        f"of {len(errs)}; max|d|/max|ref| median "
+        f"{np.median(list(errs.values())):.3g}, worst {worst[1]:.3g} "
+        f"({worst[0]}); the CPU's own spread s_t: median "
+        f"{np.median(list(spread.values())):.3g}")
+    if dloss > 1e-4:
+        fail(f"step parity: loss differs by {dloss:.3g} (> 1e-4)")
+    def l2(g):
+        num = sum(float(np.sum((g[k].astype(np.float64) - g_64[k]) ** 2))
+                  for k in g_64)
+        return np.sqrt(num / sum(float(np.sum(v ** 2))
+                                 for v in g_64.values()))
+
+    l2_g, l2_c = l2(g_gpu), l2(g_cpu)
+    log(f"  gradients against the CPU's float64 ones, relative L2 over "
+        f"every parameter: card f32 {l2_g:.3g}, CPU f32 {l2_c:.3g}")
+    if l2_g > 2 * l2_c + 1e-3:
+        fail(f"step parity: the card's gradient is {l2_g:.3g} off the "
+             f"float64 one (L2), the CPU's f32 {l2_c:.3g}")
+    return {"dloss": dloss, "direct": direct, "n": len(errs),
+            "l2_card": l2_g, "l2_cpu": l2_c,
+            "median": float(np.median(list(errs.values()))),
+            "worst": worst[1]}
+
+
+def positive_r(cfg):
+    """The circle-loss positive radius of object 1 (ape)."""
+    from gdm_tpu_torch import refdata
+
+    return cfg.model.neighbor_dis_th \
+        * refdata.get("lmo").diameters_mm_by_id[1] / 1000.0
+
+
+def rel(a, ref):
+    a = np.asarray(a, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.abs(a - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def fixed_batch_steps(cfg, root, n_steps=30):
+    """n_steps train steps on one fixed batch of TRAIN_BATCH at full
+    width: the loss must fall (last 5 below the first 5 on average); the
+    step split and device-only samples/s from synchronised timings."""
+    from gdm_tpu_torch.data.dataset import PoseDataset
+    from gdm_tpu_torch.data.loader import collate
+    from gdm_tpu_torch.train import schedules
+    from gdm_tpu_torch.train.state import create_train_state
+    from gdm_tpu_torch.train.step import make_train_step
+
+    ds = PoseDataset(cfg, 1, "train", data_root=root)
+    batch, _ = collate([ds[i] for i in range(TRAIN_BATCH)])
+    mesh = object_mesh(cfg, root, "cuda")
+    model = train_model(cfg).to("cuda")
+    state = create_train_state(model, schedules.cyclic_lr(1e-4, 1e-4, 1),
+                               0.0, 5)
+    step = make_train_step(schedules.bn_momentum_schedule(
+        batch_size=TRAIN_BATCH), positive_r(cfg), knn_chunk=1024)
+    losses, timing = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(n_steps):
+        t = {} if i >= 5 else None            # the first 5 warm up
+        losses.append(float(step(state, batch, mesh, SEED, timing=t)["loss"]))
+        if t is not None:
+            for k, v in t.items():
+                timing[k] = timing.get(k, 0.0) + v
+    n = n_steps - 5
+    split = {k: v / n for k, v in timing.items()}
+    total = sum(split.values())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"  fixed batch of {TRAIN_BATCH}, {n_steps} steps: mean loss of the "
+        f"first 5 {first:.4f}, of the last 5 {last:.4f}")
+    log("  step split (mean of steps 6-30, synchronised): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in split.items())
+        + f"; total {total:.2f} ms = {TRAIN_BATCH / total * 1e3:.2f} "
+        f"samples/s device-only; peak device memory {peak:.2f} GiB")
+    if not all(np.isfinite(losses)):
+        fail("non-finite train loss on the fixed batch")
+    if not last < first:
+        fail(f"overfit check: last-5 mean loss {last} not below first-5 "
+             f"mean {first}")
+    return {"split_ms": split, "device_sps": TRAIN_BATCH / total * 1e3,
+            "first5": first, "last5": last, "peak_gib": peak}
+
+
+def train_phase(sim, workdir):
+    """cli train (2 epochs, validating), --resume to 3 epochs, cli eval of
+    the result; step parity; the fixed-batch overfit and timings.
+    Returns the kernel launches of the two train runs."""
+    import json as _json
+
+    from gdm_tpu_torch import cli
+    from gdm_tpu_torch.configs import LMO as cfg
+
+    root = osp.join(workdir, "lmo_train")
+    ckpt_root = osp.join(workdir, "train_log")
+    t0 = time.perf_counter()
+    write_train_tree(root)
+    log(f"  synthetic tree ({TRAIN_FRAMES} JPEG train_pbr + {VAL_FRAMES} "
+        f"test frames, 480x640) written in {time.perf_counter() - t0:.2f} s")
+    loader_stages(cfg, root)
+
+    common = ["train", "--dataset", "lmo", "--data-root", root,
+              "--cls-id", "1", "--batch-size", str(TRAIN_BATCH),
+              "--eval-every", "1", "--ckpt-root", ckpt_root,
+              "--num-workers", "8", "--opt",
+              "solver.checkpoint_every_epochs=1"]
+    launches = 0
+    for extra in (["--epochs", "2"], ["--epochs", "3", "--resume"]):
+        torch.cuda.reset_peak_memory_stats()
+        sim.cosine_argmax.launches = 0
+        t0 = time.perf_counter()
+        res = cli.main(common + extra)
+        wall = time.perf_counter() - t0
+        n_launch = sim.cosine_argmax.launches
+        launches += n_launch
+        timing = res["timing"]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        wait = sum(r["wait_ms"] for r in timing)
+        busy = sum(r["wait_ms"] + r["step_ms"] for r in timing)
+        n_samples = len(timing) * TRAIN_BATCH
+        val = res["objects"]["ape"]["val"]
+        log(f"  cli train {' '.join(extra)}: {len(timing)} steps in "
+            f"{wall:.2f} s end to end ({n_samples / wall:.2f} samples/s, "
+            f"engine set-up and validation included; {n_samples * 1e3 / busy:.2f}"
+            f" samples/s over the step loop); loader wait {wait:.2f} ms of "
+            f"{busy:.2f} ms in the step loop ({wait / busy:.1%}); peak device "
+            f"memory {peak:.2f} GiB; similarity kernel launches {n_launch}; "
+            f"validation {val}")
+        if n_launch == 0:
+            fail("validation did not launch the similarity kernel")
+        if val is None or val["val_frames"] != VAL_FRAMES:
+            fail(f"validation result {val}")
+    ckpt_dir = osp.join(ckpt_root, "checkpoints", "ape")
+    with open(osp.join(ckpt_dir, "latest")) as f:
+        latest = f.read().strip()
+    rows = [_json.loads(line) for line in open(
+        osp.join(ckpt_root, "metrics", "ape.jsonl"))]
+    losses = [r["loss"] for r in rows if "loss" in r]
+    log(f"  checkpoints: {sorted(os.listdir(ckpt_dir))}, latest {latest}; "
+        f"metrics lines {len(rows)}, losses {[round(x, 4) for x in losses]}")
+    if latest != "epoch_0002" or not all(np.isfinite(losses)):
+        fail(f"train: latest {latest}, losses {losses}")
+    out = osp.join(workdir, "train_eval")
+    res = cli.main(["eval", "--dataset", "lmo", "--data-root", root,
+                    "--torch-checkpoint", osp.join(ckpt_root, "checkpoints"),
+                    "--cls-id", "1", "--exact-knn", "--batch-size",
+                    str(TRAIN_BATCH), "--output-dir", out])
+    poses = read_csv_poses(osp.join(out, "gt_lmo-test.csv"))
+    if len(poses) != VAL_FRAMES:
+        fail(f"eval of the trained checkpoint: {len(poses)} rows")
+    log(f"  cli eval of the trained checkpoint: {len(poses)} rows, "
+        f"ADD(-S) AUC {res['auc']['ape']:.4f}")
+    parity = step_parity(root)
+    fixed = fixed_batch_steps(cfg, root)
+    return launches, {"parity": parity, "fixed": fixed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -492,11 +832,10 @@ def main() -> int:
     from gdm_tpu_torch.ops import similarity as sim
 
     t0 = time.perf_counter()
-    _build.load("similarity")
-    log(f"kernel build: similarity {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    _build.load("png_unfilter")
-    log(f"host build: png_unfilter {time.perf_counter() - t0:.2f} s")
+    secs = _build.build_all(["similarity", "png_unfilter", "radius_nn",
+                             "jpeg"])
+    log(f"builds, all at once, in {time.perf_counter() - t0:.2f} s: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
     for line in _build.build_logs.get("similarity", "").splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
@@ -508,6 +847,9 @@ def main() -> int:
     log("eval phase")
     with tempfile.TemporaryDirectory() as workdir:
         launches_eval = eval_phase(sim, workdir)
+    log("train phase")
+    with tempfile.TemporaryDirectory() as workdir:
+        launches_train, _ = train_phase(sim, workdir)
 
     # one entry per kernel: the eval shape (batch 128, the main path the
     # package is scored by) first, then the serving shape
@@ -516,9 +858,10 @@ def main() -> int:
         "route": "cuda",
         "source": "gdm_tpu_torch/csrc/similarity.cu",
         "replaces": "gdm_tpu/ops/pallas/similarity.py:89",
-        "launches": launches_eval + launches_serve,
+        "launches": launches_eval + launches_serve + launches_train,
         "launches_eval": launches_eval,
         "launches_serve": launches_serve,
+        "launches_train": launches_train,
         "max_abs_err": err,
         "ms": at["eval"]["ms"],
         "plain_ms": at["eval"]["plain_ms"],

@@ -87,6 +87,24 @@ def _compile(name: str) -> str:
     return lib
 
 
+def build_all(names) -> dict[str, float]:
+    """Compile the named sources at once (one compiler process each,
+    started together), then load them; returns each one's wall seconds."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(name):
+        t0 = time.perf_counter()
+        _compile(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        secs = dict(zip(names, pool.map(one, names)))
+    for name in names:
+        load(name)
+    return secs
+
+
 def load(name: str) -> ctypes.CDLL:
     """The compiled library of ``csrc/<name>.cu`` or ``.cpp``, built if
     stale.

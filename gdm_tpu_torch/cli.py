@@ -1,6 +1,9 @@
-"""Command line of the port: evaluation, deployment inference and
-offline scoring of single-object GeoMatch on a BOP dataset.
+"""Command line of the port: training, evaluation, deployment inference
+and offline scoring of single-object GeoMatch on a BOP dataset.
 
+    python -m gdm_tpu_torch.cli train --dataset lmo --data-root DIR \\
+        --cls-id 1 --ckpt-root train_log [--epochs 50] [--resume] \\
+        [--eval-every 5]
     python -m gdm_tpu_torch.cli eval --dataset lmo --data-root DIR \\
         --torch-checkpoint CKPT --exact-knn [--cls-id 1]
     python -m gdm_tpu_torch.cli infer --dataset lmo --data-root DIR \\
@@ -8,10 +11,14 @@ offline scoring of single-object GeoMatch on a BOP dataset.
     python -m gdm_tpu_torch.cli score --dataset lmo --data-root DIR \\
         --csv results.csv
 
-Counterpart of gdm_tpu/cli.py's ``eval``, ``infer`` (per-object loop)
-and ``score``, with its flags wherever they apply.  ``CKPT/<object
-name>/geomatch.pth.tar`` holds each object's reference-format weights
-(orbax checkpoints are the JAX package's).  Each object gets one
+Counterpart of gdm_tpu/cli.py's ``train``, ``eval``, ``infer``
+(per-object loop) and ``score``, with its flags wherever they apply.
+``train`` writes ``<ckpt_root>/checkpoints/<object name>/`` (train/
+checkpoint.py), whose ``geomatch.pth.tar`` is what ``eval
+--torch-checkpoint <ckpt_root>/checkpoints`` reads, and the metrics
+stream ``<ckpt_root>/metrics/<object name>.jsonl``.
+``CKPT/<object name>/geomatch.pth.tar`` holds each object's
+reference-format weights (orbax checkpoints are the JAX package's).  Each object gets one
 serve.PoseEngine at the eval batch (``solver.val_batch_size``, 128 on
 LM-O); the loader's batches are padded to it, the first is run once
 more as a warm-up, and each frame's ``time`` is the batch's device time
@@ -21,8 +28,9 @@ raises.
 
 The KNN pyramid is exact: it is the port's only mode.  What the JAX CLI
 offers and the port does not yet (``--refine``, ``--vsd``, ``--save-viz``,
-``--stacked``, ``--model-shards``) raises, naming the ROADMAP queue 1
-item that brings it.
+``--stacked``, ``--model-shards``, and for ``train`` also
+``--pretrained-backbone``, ``--multihost`` and ``--devices`` > 1) raises,
+naming the ROADMAP queue 1 item that brings it.
 """
 
 from __future__ import annotations
@@ -46,6 +54,9 @@ _NOT_PORTED = {
     "vsd": "VSD (ROADMAP queue 1 item 6)",
     "model_shards": "mesh-column sharding (ROADMAP queue 1 item 10)",
     "save_viz": "pose overlays (ROADMAP queue 1 item 11)",
+    "pretrained_backbone": "the torchvision ResNet init of the CNN branch "
+                           "(ROADMAP queue 1 item 11)",
+    "multihost": "multi-process training (ROADMAP queue 1 item 9)",
 }
 
 
@@ -77,6 +88,10 @@ def _refuse_unported(args, log):
         if val and not (flag == "model_shards" and val == 1):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')}: {what} is not ported")
+    if getattr(args, "devices", None) not in (None, 1):
+        raise NotImplementedError(
+            "--devices > 1: data-parallel training (ROADMAP queue 1 item "
+            "9) is not ported")
     if not getattr(args, "exact_knn", True):
         log.info("approximate KNN is not ported: the pyramid is exact "
                  "(as with --exact-knn)")
@@ -446,6 +461,248 @@ def score(args):
     return results
 
 
+def _object_mesh_graph(cfg, refd, cls_id, obj_name, mesh_fps, data_root):
+    """The object's mesh graph (from the fps layout, xyz in mm), with the
+    symmetry table of a symmetric object (gdm_tpu/cli.py
+    _build_object_setup)."""
+    from gdm_tpu_torch.models.spline_mesh import build_mesh_graph
+    from gdm_tpu_torch.refdata._base import symmetry_transform
+
+    sym = None
+    if obj_name in cfg.data.sym_objs:
+        info = _models_info(refd, data_root)
+        if str(cls_id) in info:
+            sym = symmetry_transform(info[str(cls_id)])
+    fps_mm = np.concatenate([mesh_fps[:, :3] * 1000.0, mesh_fps[:, 3:]],
+                            axis=1)
+    m = cfg.model
+    return build_mesh_graph(fps_mm, m.n_mesh_node,
+                            kernel_size=m.spline_kernel, k=m.mesh_knn_k,
+                            sym_transform=sym)
+
+
+class _ValContext:
+    """Validation of ``train --eval-every`` on the object's test split
+    (gdm_tpu/cli.py:401-480): the inference path of ``eval`` (a
+    PoseEngine at the eval batch, the CUDA similarity kernel on the card)
+    with the current weights, scored by ADD(-S) recall at 0.1 d and the
+    VOC AUC.  Without a test split the run only warns."""
+
+    def __init__(self, cfg, refd, cls_id, args, diameter_m, mesh_fps,
+                 device, log):
+        from gdm_tpu_torch.data.dataset import PoseDataset
+
+        self.ok = False
+        self.log = log
+        try:
+            self.ds = PoseDataset(cfg, cls_id, "test",
+                                  data_root=args.data_root)
+        except OSError as e:
+            log.warning("--eval-every: test split unavailable (%s); "
+                        "skipping validation", e)
+            return
+        if len(self.ds) == 0:
+            log.warning("--eval-every: no test annotations for cls %d; "
+                        "skipping validation", cls_id)
+            return
+        self.cfg, self.args, self.device = cfg, args, device
+        self.bs = min(args.batch_size or cfg.solver.val_batch_size,
+                      len(self.ds))
+        self.is_sym = refd.id2obj[cls_id] in cfg.data.sym_objs
+        self.diameter = diameter_m
+        self.mesh_fps = mesh_fps
+        self.gts = _gts_from_annos(self.ds)
+        self.engine = None
+        self.ok = True
+
+    def run(self, model) -> dict | None:
+        """{'val_add_auc', 'val_ad_10', 'val_frames'} of ``model``'s
+        current weights, or None."""
+        from gdm_tpu_torch import weights
+        from gdm_tpu_torch.eval.metrics import add_err, adi_err, voc_auc
+        from gdm_tpu_torch.serve import PoseEngine
+
+        if not self.ok:
+            return None
+        sd = weights.reference_state_dict(model)
+        if self.engine is None:
+            fps_mm = np.concatenate([self.mesh_fps[:, :3] * 1000.0,
+                                     self.mesh_fps[:, 3:]], axis=1)
+            self.engine = PoseEngine(
+                self.cfg, fps_mm, sd, self.device, batch=self.bs,
+                knn_chunk=knn_chunk_for(self.args.knn_chunk, self.bs,
+                                        self.cfg, self.log))
+        else:
+            self.engine.load_weights(sd)
+        errs = []
+        for meta, _, pose, _ in _run_batches(
+                self.engine, self.ds, self.bs, self.args.num_workers, []):
+            gt = self.gts[meta["file_name"]]
+            err_fn = adi_err if self.is_sym else add_err
+            errs.append(err_fn(pose[:, :3], pose[:, 3], gt["R"], gt["t"],
+                               self.mesh_fps[:, :3]))
+        return {
+            "val_add_auc": float(voc_auc(errs, max_dis=0.1)),
+            "val_ad_10": float(np.mean(
+                np.asarray(errs) < 0.1 * self.diameter) * 100.0),
+            "val_frames": len(errs),
+        }
+
+
+def train(args):
+    """Train one model per object (gdm_tpu/cli.py:481-733) on one device.
+
+    Returns {'objects': {name: {'state', 'val'}}, 'timing': per-step
+    {'obj', 'epoch', 'it', 'wait_ms', 'step_ms'}}: the host time waiting
+    on the loader and the time to enqueue the step (the device runs
+    asynchronously; the loss is read every 100 iterations)."""
+    import torch
+
+    from gdm_tpu_torch import refdata, weights
+    from gdm_tpu_torch.configs import get_config
+    from gdm_tpu_torch.data.dataset import PoseDataset
+    from gdm_tpu_torch.data.loader import DataLoader
+    from gdm_tpu_torch.models.geomatch import GeoMatch, MeshArrays
+    from gdm_tpu_torch.train.checkpoint import load_checkpoint, \
+        save_checkpoint
+    from gdm_tpu_torch.train.schedules import bn_momentum_schedule, \
+        cyclic_lr
+    from gdm_tpu_torch.train.state import create_train_state
+    from gdm_tpu_torch.train.step import make_train_step
+    from gdm_tpu_torch.utils.logging import JsonlLogger
+
+    log = get_logger("train")
+    _refuse_unported(args, log)
+    device = _device(args)
+    cfg = get_config(args.dataset, args.opt)
+    refd = refdata.get(args.dataset)
+    sol = cfg.solver
+    epochs = args.epochs or sol.total_epochs
+    batch_size = args.batch_size or sol.train_batch_size
+    cls_ids = (list(cfg.data.obj_ids) if args.cls_id == "all"
+               else [int(args.cls_id)])
+    bnm = bn_momentum_schedule(sol.bn_momentum, sol.bn_decay,
+                               sol.bn_decay_step, batch_size,
+                               sol.bn_momentum_clip)
+    lr = None
+    result = {"objects": {}, "timing": []}
+
+    for cls_id in cls_ids:
+        obj_name = refd.id2obj[cls_id]
+        diameter_m = refd.diameters_mm_by_id[cls_id] / 1000.0
+        mesh_fps = _object_mesh(cfg, cls_id, args.data_root)
+        log.info("object %s (id %d), diameter %.3f m", obj_name, cls_id,
+                 diameter_m)
+        mesh = MeshArrays.from_graph(_object_mesh_graph(
+            cfg, refd, cls_id, obj_name, mesh_fps, args.data_root), device)
+
+        ds = PoseDataset(cfg, cls_id, "train", mesh_fps=mesh_fps,
+                         data_root=args.data_root,
+                         rng=np.random.RandomState(args.seed))
+        dl = DataLoader(ds, batch_size, shuffle=True, drop_last=True,
+                        num_workers=args.num_workers, seed=args.seed,
+                        workers=args.loader_workers)
+        log.info("%d samples, %d steps/epoch", len(ds), len(dl))
+        if len(dl) == 0:
+            raise SystemExit(f"{obj_name}: {len(ds)} samples is smaller "
+                             f"than the batch {batch_size} (drop_last)")
+        # one schedule for the run, sized by the first object (the JAX
+        # CLI builds it once too): epochs * steps / clr_div
+        if lr is None:
+            lr = cyclic_lr(sol.base_lr, sol.max_lr,
+                           max(epochs * len(dl) // sol.clr_div, 1))
+
+        model = GeoMatch(cfg.model.feat_dim, tuple(cfg.model.randla_d_out),
+                         spline_kernel=cfg.model.spline_kernel, awl=True)
+        weights.init_random_(model, torch.Generator().manual_seed(
+            args.seed + cls_id))
+        model.to(device)
+        state = create_train_state(model, lr, sol.weight_decay,
+                                   sol.skip_nonfinite)
+        positive_r = cfg.model.neighbor_dis_th * diameter_m
+        train_step = make_train_step(bnm, positive_r, args.knn_chunk)
+
+        ckpt_dir = osp.join(args.ckpt_root, "checkpoints", obj_name)
+        start_epoch = 0
+        if args.resume:
+            state, ep = load_checkpoint(state, ckpt_dir)
+            if ep is not None:
+                start_epoch = ep + 1
+                log.info("resumed from epoch %d", ep)
+        val_ctx = (_ValContext(cfg, refd, cls_id, args, diameter_m,
+                               mesh_fps, device, log)
+                   if args.eval_every else None)
+        mlog = JsonlLogger(osp.join(args.ckpt_root, "metrics",
+                                    f"{obj_name}.jsonl"))
+        notfinite_seen = 0
+        rng = args.seed + 7 + cls_id
+        val = None
+        for epoch in range(start_epoch, epochs):
+            dl.set_epoch(epoch)
+            t0 = time.perf_counter()
+            it_prev = 0
+            it_dl = iter(dl)
+            it = 0
+            while True:
+                tw = time.perf_counter()
+                item = next(it_dl, None)
+                wait = time.perf_counter() - tw
+                if item is None:
+                    break
+                ts = time.perf_counter()
+                metrics = train_step(state, item[0], mesh, rng)
+                result["timing"].append({
+                    "obj": obj_name, "epoch": epoch, "it": it,
+                    "wait_ms": wait * 1e3,
+                    "step_ms": (time.perf_counter() - ts) * 1e3})
+                if it % 100 == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    dt = time.perf_counter() - t0
+                    sps = (it - it_prev + 1) * batch_size / max(dt, 1e-9)
+                    step = state.step
+                    log.info("epoch %d it %d loss %.4f (seg %.4f match %.4f) "
+                             "%.2f s (%.1f samples/s)", epoch, it, m["loss"],
+                             m["seg_loss"], m["match_loss"], dt, sps)
+                    nf = int(m.get("total_notfinite", 0))
+                    if nf > notfinite_seen:
+                        log.warning("%d non-finite update(s) skipped so far "
+                                    "(solver.skip_nonfinite guard)", nf)
+                        notfinite_seen = nf
+                    if not np.isfinite(m["loss"]):
+                        log.warning("non-finite loss at epoch %d it %d",
+                                    epoch, it)
+                    mlog.write({
+                        "obj": obj_name, "epoch": epoch, "it": it,
+                        "step": step, "loss": m["loss"],
+                        "seg_loss": m["seg_loss"],
+                        "match_loss": m["match_loss"],
+                        # the update just logged read the schedule at
+                        # step - 1
+                        "lr": float(lr(max(step - 1, 0))),
+                        "bn_momentum": m["bn_momentum"],
+                        "samples_per_sec": round(sps, 2),
+                        "total_notfinite": nf,
+                    })
+                    t0 = time.perf_counter()
+                    it_prev = it + 1
+                it += 1
+            if ((epoch + 1) % sol.checkpoint_every_epochs == 0
+                    or epoch + 1 == epochs):
+                path = save_checkpoint(state, ckpt_dir, epoch)
+                log.info("checkpoint -> %s", path)
+            if val_ctx is not None and ((epoch + 1) % args.eval_every == 0
+                                        or epoch + 1 == epochs):
+                val = val_ctx.run(state.model)
+                if val is not None:
+                    log.info("epoch %d val: add_auc %.2f ad_10 %.2f%% "
+                             "(%d frames)", epoch, val["val_add_auc"],
+                             val["val_ad_10"], val["val_frames"])
+                    mlog.write({"obj": obj_name, "epoch": epoch, **val})
+        mlog.close()
+        result["objects"][obj_name] = {"state": state, "val": val}
+    return result
+
+
 def build_parser():
     p = argparse.ArgumentParser("gdm_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -487,6 +744,48 @@ def build_parser():
         sp.add_argument("--model-shards", type=int, default=1,
                         help="not ported")
 
+    t = sub.add_parser("train", help="train per-object models")
+    t.add_argument("--dataset", required=True,
+                   choices=["lmo", "lmfull", "lm_full", "ycbv"])
+    t.add_argument("--data-root", required=True)
+    t.add_argument("--cls-id", required=True,
+                   help="object id, or 'all' for every object of the "
+                        "config in turn")
+    t.add_argument("--ckpt-root", default="train_log",
+                   help="checkpoints/<object>/ and metrics/<object>.jsonl "
+                        "go here")
+    t.add_argument("--epochs", type=int, default=None,
+                   help="default solver.total_epochs")
+    t.add_argument("--batch-size", type=int, default=None,
+                   help="default solver.train_batch_size (the validation "
+                        "batch too)")
+    t.add_argument("--resume", action="store_true",
+                   help="continue from checkpoints/<object>/latest")
+    t.add_argument("--eval-every", type=int, default=None,
+                   help="validate on the test split every N epochs "
+                        "(ADD(-S) recall at 0.1 d and VOC AUC)")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--num-workers", type=int, default=8,
+                   help="loader decode workers")
+    t.add_argument("--loader-workers", choices=["thread", "process"],
+                   default="thread",
+                   help="decode worker kind: threads, or spawned processes")
+    t.add_argument("--knn-chunk", type=int, default=1024,
+                   help="KNN queries per distance block")
+    t.add_argument("--opt", action="append", default=[],
+                   metavar="SECTION.FIELD=VALUE",
+                   help="config override, repeatable (e.g. "
+                        "solver.checkpoint_every_epochs=1)")
+    t.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu on request)")
+    t.add_argument("--pretrained-backbone", default=None,
+                   help="not ported")
+    t.add_argument("--multihost", action="store_true", help="not ported")
+    t.add_argument("--devices", type=int, default=None,
+                   help="not ported beyond 1")
+    t.add_argument("--model-shards", type=int, default=1,
+                   help="not ported")
+
     e = sub.add_parser("eval", help="evaluate on the test set")
     run(e)
     e.add_argument("--output-dir", default="output")
@@ -512,6 +811,8 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.command == "train":
+        return train(args)
     if args.command == "score":
         return score(args)
     if args.command == "infer":

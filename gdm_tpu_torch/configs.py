@@ -1,12 +1,13 @@
 """Config dataclasses and the three dataset presets.
 
 Counterpart of gdm_tpu/configs/base.py for the fields that inference,
-the BOP loader and the eval CLI read, in the same ``config.data.*`` /
-``config.model.*`` / ``config.solver.*`` layout and with the same preset
-values (reference config/lmo_cfg.py, lmfull_cfg.py, ycbv_cfg.py).  Fields
-of the training slice (train subsets, optimiser, schedules, backbone
-choice) are not ported yet.  ``fill_depth`` is here because the YCB-V
-preset sets it; the port's loader refuses it until depth fill is ported.
+training, the BOP loader and the CLI read, in the same ``config.data.*``
+/ ``config.model.*`` / ``config.solver.*`` layout and with the same
+preset values (reference config/lmo_cfg.py, lmfull_cfg.py,
+ycbv_cfg.py).  ``fill_depth`` and ``real_pbr_mix`` are here because the
+YCB-V preset sets them; the port's loader refuses them until YCB-V
+training data is ported.  The backbone choice, bf16 compute and the
+pretrained-backbone path are not ported (ROADMAP queue 1 items 4, 11).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ class DataConfig:
 
     name: str                       # refdata registry key
     data_root: str = "datasets"
+    train_subsets: Sequence[str] = ("train_pbr",)
     test_subsets: Sequence[str] = ("test",)
     obj_ids: Sequence[int] = ()
     img_hw: tuple = (480, 640)
@@ -32,7 +34,11 @@ class DataConfig:
     nn_dist_th: float = 0.05        # x diameter: GT match outlier cutoff
     input_size: int = 256           # square crop side
     sym_objs: Sequence[str] = ()
+    real_pbr_mix: float | None = None   # ycbv: p(real)=0.8 (ycbv_pbr.py:684)
     fill_depth: bool = False        # ycbv: ip_basic on the crop
+    cache_visibility: bool = True   # cache each annotation's HPR visibility
+    hpr_radius_param: float = 2.0   # HPR flip-radius exponent (the
+    #   reference's pi: --opt data.hpr_radius_param=3.141592653589793)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +47,7 @@ class ModelConfig:
 
     feat_dim: int = 128
     n_mesh_node: int = 4096
+    neighbor_dis_th: float = 0.02   # x diameter: circle-loss positive radius
     randla_d_out: Sequence[int] = (32, 64, 128, 256)
     mesh_knn_k: int = 4
     spline_kernel: int = 5
@@ -48,7 +55,24 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
+    """SOLVER/DATALOADER blocks + what train_lm.py actually runs."""
+
+    total_epochs: int = 50
+    train_batch_size: int = 24
     val_batch_size: int = 128       # the eval batch
+    base_lr: float = 1e-6           # CyclicLR (train_lm.py:441-447)
+    max_lr: float = 1e-3
+    clr_div: int = 6                # step_size = epochs*len/bs/div
+    weight_decay: float = 0.0       # > 0: AdamW
+    bn_momentum: float = 0.9        # torch convention (train_lm.py:53-57)
+    bn_decay: float = 0.5
+    bn_decay_step: float = 2e5
+    bn_momentum_clip: float = 0.01
+    checkpoint_every_epochs: int = 10
+    # non-finite-update guard (optax.apply_if_finite semantics): updates
+    # whose gradients hold NaN/inf are skipped up to this many times in
+    # a row, then pass through; 0 disables it
+    skip_nonfinite: int = 5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,33 +89,39 @@ LMO = Config(
         nn_dist_th=0.05,
         sym_objs=("eggbox",),
     ),
-    model=ModelConfig(),
-    solver=SolverConfig(val_batch_size=128),
+    model=ModelConfig(neighbor_dis_th=0.02),
+    solver=SolverConfig(total_epochs=50, train_batch_size=24,
+                        val_batch_size=128),
 )
 
 LMFULL = Config(
     data=DataConfig(
         name="lm_full",
+        train_subsets=("real", "fuse", "renders"),
         obj_ids=tuple(range(1, 16)),
         num_sample_points=480 * 640 // 24,   # 12800 (lmfull_cfg.py:76)
         nn_dist_th=0.01,
         input_size=128,
         sym_objs=("eggbox",),
     ),
-    model=ModelConfig(),
-    solver=SolverConfig(val_batch_size=8),
+    model=ModelConfig(neighbor_dis_th=0.02),
+    solver=SolverConfig(total_epochs=50, train_batch_size=6,
+                        val_batch_size=8),
 )
 
 YCBV = Config(
     data=DataConfig(
         name="ycbv",
+        train_subsets=("train_real", "train_pbr"),
         obj_ids=tuple(range(1, 22)),
         nn_dist_th=0.05,
         sym_objs=("024_bowl", "052_extra_large_clamp", "061_foam_brick"),
+        real_pbr_mix=0.8,
         fill_depth=True,
     ),
-    model=ModelConfig(),
-    solver=SolverConfig(val_batch_size=128),
+    model=ModelConfig(neighbor_dis_th=0.06),
+    solver=SolverConfig(total_epochs=30, train_batch_size=8,
+                        val_batch_size=128),
 )
 
 _PRESETS = {"lmo": LMO, "lmfull": LMFULL, "lm_full": LMFULL, "ycbv": YCBV}
@@ -109,6 +139,8 @@ def _parse_value(path: str, old, raw: str):
                          "(use true/false/1/0/yes/no)")
     if isinstance(old, (int, float)):
         return type(old)(raw)
+    if old is None:                 # an optional number (real_pbr_mix)
+        return None if raw.lower() in ("none", "null") else float(raw)
     if isinstance(old, (tuple, list)):
         # each element takes the existing element type, so
         # model.randla_d_out=16,32 yields ints, not strings

@@ -1,4 +1,4 @@
-"""Image decode and encode on the host: a PNG codec in numpy and zlib.
+"""Image decode and encode on the host: PNG in numpy and zlib, JPEG in C++.
 
 Counterpart of gdm_tpu/data/imio.py, which decodes with cv2; the GPU
 host has neither cv2 nor PIL.  The decoders return what cv2.imread
@@ -12,11 +12,20 @@ RGBA, gray, palette and 16-bit gray files):
     PNG, as uint16;
   * ``imread_mask`` is ``IMREAD_GRAYSCALE`` of a single-channel PNG.
 
-Unfiltering: None, Sub (a wrapping cumsum over each byte lane) and Up
-run on whole rows in numpy; Average and Paeth are sequential per byte
+PNG unfiltering: None, Sub (a wrapping cumsum over each byte lane) and
+Up run on whole rows in numpy; Average and Paeth are sequential per byte
 and run in a small C++ row loop (``csrc/png_unfilter.cpp``).  Interlaced
-PNGs and JPEG input raise NotImplementedError naming the file: the BOP
-``test`` splits of LM-O and YCB-V are non-interlaced PNG.  A missing file
+PNGs raise NotImplementedError naming the file: the BOP ``test`` splits
+of LM-O and YCB-V are non-interlaced PNG.
+
+JPEG (the BOP ``train_pbr`` frames) goes through ``csrc/jpeg.cpp``, a
+baseline decoder that gives libjpeg-turbo's default output (ISLOW IDCT,
+fancy upsampling, fixed-point YCbCr tables), so ``imread_rgb`` equals
+``cv2.imread(path, IMREAD_COLOR)`` in RGB order on 8-bit Huffman
+sequential files, 4:2:0, 4:2:2, 4:4:4 or gray, restart markers included.
+EXIF orientation is not applied.  Progressive, arithmetic-coded, lossless
+and 12-bit JPEGs raise NotImplementedError naming the file.
+``imwrite_jpeg`` writes baseline files (standard tables).  A missing file
 raises FileNotFoundError, as the cv2 readers do.
 """
 
@@ -98,12 +107,86 @@ def unfilter(path: str, raw: np.ndarray, bpp: int) -> np.ndarray:
     return out
 
 
-def _decode(path: str) -> _Png:
+_JPEG_ERRORS = {
+    1: (ValueError, "not a JPEG file"),
+    2: (ValueError, "corrupt or truncated JPEG data"),
+    3: (NotImplementedError, "progressive JPEG decode is not ported"),
+    4: (NotImplementedError, "arithmetic-coded JPEG decode is not ported"),
+    5: (NotImplementedError, "JPEG sample precision other than 8 bits is "
+                             "not ported"),
+    6: (NotImplementedError, "unsupported JPEG (lossless, hierarchical, "
+                             "4 components or chroma layout)"),
+    7: (ValueError, "JPEG scan refers to a missing table"),
+}
+
+
+def _jpeg_lib():
+    from gdm_tpu_torch import _build
+
+    lib = _build.load("jpeg")
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.gdm_jpeg_info.argtypes = [p, i64, p]
+    lib.gdm_jpeg_info.restype = ctypes.c_int
+    lib.gdm_jpeg_decode.argtypes = [p, i64, p, i64]
+    lib.gdm_jpeg_decode.restype = ctypes.c_int
+    lib.gdm_jpeg_encode.argtypes = [p, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int, p, i64]
+    lib.gdm_jpeg_encode.restype = i64
+    return lib
+
+
+def _jpeg_check(path: str, code: int) -> None:
+    if code:
+        err, msg = _JPEG_ERRORS.get(code, (ValueError, f"error {code}"))
+        raise err(f"{path}: {msg}")
+
+
+def decode_jpeg(path: str, data: bytes) -> np.ndarray:
+    """[H, W, 3] uint8 RGB of a baseline JPEG (gray replicated)."""
+    lib = _jpeg_lib()
+    buf = np.frombuffer(data, np.uint8)
+    info = np.zeros(3, np.int32)
+    _jpeg_check(path, lib.gdm_jpeg_info(buf.ctypes.data, buf.size,
+                                        info.ctypes.data))
+    w, h = int(info[0]), int(info[1])
+    out = np.empty((h, w, 3), np.uint8)
+    _jpeg_check(path, lib.gdm_jpeg_decode(buf.ctypes.data, buf.size,
+                                          out.ctypes.data, out.size))
+    return out
+
+
+def imwrite_jpeg(path: str, img: np.ndarray, quality: int = 95,
+                 subsample: bool = True, restart_interval: int = 0) -> None:
+    """Write a uint8 RGB [H,W,3] or gray [H,W] image as a baseline JPEG:
+    the standard tables at ``quality`` (libjpeg scaling), 4:2:0 chroma
+    (4:4:4 with ``subsample=False``), RST markers every
+    ``restart_interval`` MCUs when > 0."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"imwrite_jpeg: unsupported array {img.dtype} "
+                         f"{img.shape}")
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else 3
+    cap = 2 * img.size + 4096
+    out = np.empty(cap, np.uint8)
+    n = _jpeg_lib().gdm_jpeg_encode(img.ctypes.data, w, h, c, int(quality),
+                                    int(subsample), int(restart_interval),
+                                    out.ctypes.data, cap)
+    if n < 0:
+        raise ValueError(f"imwrite_jpeg: encoder error {n} on {img.shape}")
+    with open(path, "wb") as f:
+        f.write(out[:n].tobytes())
+
+
+def _read(path: str) -> bytes:
     with open(path, "rb") as f:
-        data = f.read()
-    if data[:3] == b"\xff\xd8\xff":
-        raise NotImplementedError(
-            f"{path}: JPEG decode is not ported (PNG only)")
+        return f.read()
+
+
+def _decode(path: str, data: bytes | None = None) -> _Png:
+    data = _read(path) if data is None else data
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     header, palette, idat = None, None, []
@@ -158,8 +241,12 @@ def _gray8(png: _Png) -> np.ndarray:
 
 
 def imread_rgb(path: str) -> np.ndarray:
-    """[H,W,3] uint8 RGB (alpha dropped, palette and gray expanded)."""
-    png = _decode(path)
+    """[H,W,3] uint8 RGB of a PNG (alpha dropped, palette and gray
+    expanded) or a JPEG."""
+    data = _read(path)
+    if data[:3] == b"\xff\xd8\xff":
+        return decode_jpeg(path, data)
+    png = _decode(path, data)
     if png.color_type == 3:
         return png.palette[png.samples[..., 0]]
     s = _gray8(png)

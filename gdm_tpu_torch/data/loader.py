@@ -1,22 +1,43 @@
-"""Ordered, prefetching batch loader (host side).
+"""Prefetching batch loader (host side).
 
-Counterpart of gdm_tpu/data/loader.py as evaluation uses it
-(``shuffle=False, drop_last=False``, thread workers): a thread pool
-decodes and crops the samples of a batch concurrently while the device
-runs the previous batch, and a bounded queue holds the batches ready.
-Threads suffice: zlib, the C++ PNG row filter and the large numpy
-operations of the crop release the GIL.  Batches come in dataset order,
-the trailing one partial; :func:`pad_batch` pads it to the engine's batch.
-Process workers, shuffling and sharding come with the training slice.
+Counterpart of gdm_tpu/data/loader.py (reference torch DataLoader +
+DistributedSampler, train_lm.py:399-408): a pool decodes and crops the
+samples of a batch concurrently while the device runs the previous batch,
+and a bounded queue holds the batches ready.
+
+  * ``shuffle`` draws each epoch's order from RandomState(seed + epoch)
+    (``set_epoch``, as DistributedSampler), the JAX package's order to the
+    index; ``rank``/``world`` take an interleaved slice of it;
+  * ``drop_last`` drops the trailing partial batch (training); without it
+    the last batch is partial and :func:`pad_batch` pads it to the
+    engine's batch (evaluation);
+  * ``workers='thread'`` (default) decodes in threads: zlib, the C++ PNG
+    and JPEG decoders and the large numpy operations release the GIL;
+    ``workers='process'`` in processes started with ``spawn`` (never
+    ``fork``: the parent may hold CUDA), each holding its own copy of the
+    dataset, shipped once when the pool starts.  Workers never touch CUDA.
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import queue
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
+
+# the dataset of a process worker, set once by the pool's initializer
+_worker_dataset = None
+
+
+def _init_worker(dataset):
+    global _worker_dataset
+    _worker_dataset = dataset
+
+
+def _worker_get(i):
+    return _worker_dataset[i]
 
 
 def collate(samples: list[dict]) -> tuple[dict, list[dict]]:
@@ -44,22 +65,56 @@ def pad_batch(batch: dict, bs: int) -> dict:
 
 
 class DataLoader:
-    """Iterate a dataset in order, in batches of ``batch_size`` (the last
-    one partial), decoded by ``num_workers`` threads and prefetched up to
+    """Iterate a dataset in batches of ``batch_size``, decoded by
+    ``num_workers`` threads or processes and prefetched up to
     ``prefetch`` batches ahead.  Yields (batch dict, meta list)."""
 
-    def __init__(self, dataset, batch_size: int, num_workers: int = 8,
-                 prefetch: int = 2):
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, num_workers: int = 8,
+                 prefetch: int = 2, seed: int = 0, rank: int = 0,
+                 world: int = 1, workers: str = "thread"):
+        if workers not in ("thread", "process"):
+            raise ValueError(f"workers {workers!r}: 'thread' or 'process'")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
+        self.seed = seed
+        self.rank, self.world = rank, world
+        self.workers = workers
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            # the dataset mixes the epoch into its train rng; process
+            # pools ship the dataset at __iter__ time, so it reaches them
+            self.dataset.set_epoch(epoch)
+
+    def epoch_indices(self) -> np.ndarray:
+        n = len(self.dataset)
+        order = (np.random.RandomState(self.seed + self.epoch).permutation(n)
+                 if self.shuffle else np.arange(n))
+        return order[self.rank::self.world]
 
     def __len__(self):
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.epoch_indices())
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
+
+    def _pool(self):
+        if self.workers == "process":
+            return ProcessPoolExecutor(
+                self.num_workers, mp_context=multiprocessing.get_context(
+                    "spawn"), initializer=_init_worker,
+                initargs=(self.dataset,)), _worker_get
+        return ThreadPoolExecutor(self.num_workers), self.dataset.__getitem__
 
     def __iter__(self):
-        n, bs = len(self.dataset), self.batch_size
+        idxs = self.epoch_indices()
+        n_batches, bs = len(self), self.batch_size
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
@@ -76,14 +131,18 @@ class DataLoader:
             return False
 
         def produce():
-            with ThreadPoolExecutor(self.num_workers) as pool:
-                for start in range(0, n, bs):
+            try:
+                pool, get = self._pool()
+            except Exception as e:                  # surface in consumer
+                put(e)
+                return
+            with pool:
+                for b in range(n_batches):
                     if stop.is_set():
                         return
-                    idx = range(start, min(start + bs, n))
                     try:
-                        samples = list(pool.map(self.dataset.__getitem__,
-                                                idx))
+                        samples = list(pool.map(get,
+                                                idxs[b * bs:(b + 1) * bs]))
                         if not put(collate(samples)):
                             return
                     except Exception as e:          # surface in consumer

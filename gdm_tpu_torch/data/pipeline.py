@@ -82,8 +82,12 @@ def finalize_batch(batch: dict) -> dict:
         "xyz_img": xyz_img,
         "choose": choose,
     }
-    if "det" in batch:
-        out["det"] = batch["det"]
+    for k in ("labels", "origin_labels", "match_idx", "visible_flag",
+              "RT", "det"):
+        if k in batch:
+            out[k] = batch[k].to(torch.int64) \
+                if k in ("labels", "origin_labels", "match_idx") \
+                else batch[k]
     return out
 
 

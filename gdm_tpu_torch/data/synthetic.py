@@ -2,11 +2,11 @@
 
 Counterpart of gdm_tpu/data/synthetic.py's ``make_object`` and
 ``write_synthetic_bop_root``: the same objects, poses, frames, JSONs and
-detections from the same seed.  Frames are written with the port's PNG
-encoder (data/imio.imwrite_png) in place of PIL, so the files differ
-byte for byte but decode to the same pixels.  Only PNG subsets (the
-``test`` split) are written: JPEG (``train_pbr``) waits for the training
-slice.
+detections from the same seed.  Frames are written with the port's own
+encoders (data/imio) where the JAX package calls PIL: PNG, whose files
+differ byte for byte but decode to the same pixels, and, for
+``train_pbr``, baseline JPEG at quality 95 with 4:2:0 chroma (the same
+settings), whose pixels differ by the two encoders' rounding.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import os
 
 import numpy as np
 
-from gdm_tpu_torch.data.imio import imwrite_png
+from gdm_tpu_torch.data.imio import imwrite_jpeg, imwrite_png
 
 
 def make_object(n_pts: int, rng: np.random.RandomState,
@@ -51,7 +51,8 @@ def write_synthetic_bop_root(root, mesh_fps, n_frames=96,
     Args:
       mesh_fps: a single [n, 9] fps array (written as `obj_id`), or a
         dict {obj_id: fps array} — each object gets its own scene.
-      subsets: PNG subsets to write (a 'pbr' subset, JPEG, raises).
+      subsets: subsets to write; 'train_pbr' frames are JPEG, the
+        others PNG.
       eval_meshes: also write models_eval/obj_XXXXXX.ply (convex hull
         of the fps points, BOP millimetres).
 
@@ -59,11 +60,6 @@ def write_synthetic_bop_root(root, mesh_fps, n_frames=96,
     """
     from scipy.spatial.transform import Rotation
 
-    for subset in subsets:
-        if "pbr" in subset:
-            raise NotImplementedError(
-                f"subset {subset!r}: pbr frames are JPEG, and the port "
-                "writes PNG only")
     imh, imw = im_hw
     if K is None:
         K = np.array([[572.4, 0, imw / 2.0], [0, 573.6, imh / 2.0],
@@ -93,6 +89,7 @@ def write_synthetic_bop_root(root, mesh_fps, n_frames=96,
                       fps[:, :3], faces=hull.simplices)
 
     for subset in subsets:
+        ext = "jpg" if subset == "train_pbr" else "png"
         lines, det = [], {}
         for scene_id, (oid, (rpts, colors)) in enumerate(renders.items()):
             sdir = os.path.join(root, subset, f"{scene_id:06d}")
@@ -126,7 +123,11 @@ def write_synthetic_bop_root(root, mesh_fps, n_frames=96,
                 bbox = [int(xs.min()), int(ys.min()),
                         int(xs.max() - xs.min() + 1),
                         int(ys.max() - ys.min() + 1)]
-                imwrite_png(os.path.join(sdir, f"rgb/{i:06d}.png"), rgb)
+                rgb_path = os.path.join(sdir, f"rgb/{i:06d}.{ext}")
+                if ext == "jpg":
+                    imwrite_jpeg(rgb_path, rgb, quality=95)
+                else:
+                    imwrite_png(rgb_path, rgb)
                 imwrite_png(os.path.join(sdir, f"depth/{i:06d}.png"),
                             (depth * 10000).astype(np.uint16))
                 imwrite_png(os.path.join(

@@ -1,4 +1,4 @@
-"""FFB6D dual-branch encoder with pixel<->point fusion (eval forward).
+"""FFB6D dual-branch encoder with pixel<->point fusion.
 
 Counterpart of gdm_tpu/models/ffb6d.py: four CNN/RandLA downsample stages
 with r2p/p2r fusion, three fused upsample stages, a final upsample on both
@@ -9,8 +9,10 @@ reference-named state dicts load as they are.
 Layouts: the public input is the JAX package's dict (``rgb`` NHWC
 [B, H, W, 3], points [B, N, C], index pyramids [B, M, K] int64).  CNN maps
 run NCHW in channels_last memory, so the fusion layers' switch to
-[B, H*W, C] and back is a free permute.  Dropout is a no-op at eval and
-is left out.
+[B, H*W, C] and back is a free permute.  In training mode, dropout (0.3
+after the PSP head, 0.15 after up_1 and up_2; gdm_tpu/models/ffb6d.py:91)
+sits at index 1 of those stages' Sequentials, where the reference keeps
+its drop modules; it holds no parameters.
 """
 
 from __future__ import annotations
@@ -18,7 +20,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from gdm_tpu_torch.models.layers import DenseBNAct, gather_rows, randla_dense
+from gdm_tpu_torch.models.layers import (
+    DenseBNAct,
+    Dropout,
+    gather_rows,
+    randla_dense,
+)
 from gdm_tpu_torch.models.pspnet import PSPModule, PSPUpsample, final_layer
 from gdm_tpu_torch.models.randla import (
     DilatedResBlock,
@@ -45,18 +52,19 @@ def _fuse_list(c_ins, c_outs) -> nn.ModuleList:
 
 
 class FFB6DEmb(nn.Module):
-    def __init__(self, d_out=(32, 64, 128, 256)):
+    def __init__(self, d_out=(32, 64, 128, 256), drop_psp: float = 0.3,
+                 drop_up: float = 0.15):
         super().__init__()
         layer1, layer2, layer3, layer4 = resnet18_stages()
         self.cnn_pre_stages = Stem()
         self.cnn_ds_stages = nn.ModuleList([
             layer1, layer2, nn.Sequential(layer3, layer4),
-            nn.Sequential(PSPModule(512, 1024))])
+            nn.Sequential(PSPModule(512, 1024), Dropout(drop_psp))])
         # cnn.final serves up stage 2 and, after up_3, the last stage; it
         # is registered once, at cnn_up_stages.2.0
         self.cnn_up_stages = nn.ModuleList([
-            nn.Sequential(PSPUpsample(1024, 256)),
-            nn.Sequential(PSPUpsample(256, 64)),
+            nn.Sequential(PSPUpsample(1024, 256), Dropout(drop_up)),
+            nn.Sequential(PSPUpsample(256, 64), Dropout(drop_up)),
             nn.Sequential(final_layer()),
             nn.Sequential(PSPUpsample(64, 64))])
 

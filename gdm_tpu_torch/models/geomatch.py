@@ -1,9 +1,13 @@
-"""GeoMatch at eval: FFB6D scene branch + SplineCNN mesh branch + heads.
+"""GeoMatch: FFB6D scene branch + SplineCNN mesh branch + heads.
 
 Counterpart of gdm_tpu/models/geomatch.py (the RandLA + SplineCNN
 flagship).  The mesh branch does not depend on the batch, so serving
 calls :meth:`GeoMatch.encode_mesh` once per object and passes the
-features to every forward.
+features to every forward.  ``forward(..., train=True)`` adds the
+training losses (geomatch.py:111-131): the circle matching loss, the
+focal seg loss and their uncertainty weighting, whose parameter
+``awl.params`` exists only in a model built with ``awl=True``, so the
+eval model's state dict stays the one inference loads.
 """
 
 from __future__ import annotations
@@ -13,6 +17,11 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from gdm_tpu_torch.losses import (
+    AutomaticWeightedLoss,
+    focal_loss,
+    pointwise_matching_loss,
+)
 from gdm_tpu_torch.models.ffb6d import FFB6DEmb
 from gdm_tpu_torch.models.layers import DenseBNAct, MLPHead
 from gdm_tpu_torch.models.spline_mesh import MeshGraph, SplineMeshEncoder
@@ -26,6 +35,7 @@ class MeshArrays(NamedTuple):
     neigh_idx: torch.Tensor  # [m, k] int64
     basis: torch.Tensor      # [m, k, 8] f32
     slot: torch.Tensor       # [m, k, 8] int64
+    sym_idx: torch.Tensor | None = None   # [m] int64, symmetric objects
 
     @classmethod
     def from_graph(cls, g: MeshGraph, device) -> "MeshArrays":
@@ -37,18 +47,33 @@ class MeshArrays(NamedTuple):
 
         return cls(xyz=f32(g.xyz), node_x=f32(g.node_x),
                    neigh_idx=i64(g.neigh_idx), basis=f32(g.basis),
-                   slot=i64(g.slot))
+                   slot=i64(g.slot),
+                   sym_idx=None if g.sym_idx is None else i64(g.sym_idx))
 
 
 class GeoMatch(nn.Module):
-    """Eval-mode GeoMatch.  ``forward`` returns {'seg' [B,N,2],
-    'rgbd' [B,N,feat_dim], 'mesh' [M,feat_dim]}."""
+    """GeoMatch.  ``forward`` returns {'seg' [B,N,2], 'rgbd'
+    [B,N,feat_dim], 'mesh' [M,feat_dim]}, and with ``train=True`` also
+    'loss', 'seg_loss' and 'match_loss'.
+
+    Args:
+      awl: hold the loss weighting ``awl.params`` (training).
+      dropout: False sets every dropout rate to 0.
+      circle_m, circle_gamma: circle-loss margin and scale.
+    """
 
     def __init__(self, feat_dim: int = 128, d_out=(32, 64, 128, 256),
-                 spline_kernel: int = 5):
+                 spline_kernel: int = 5, awl: bool = False,
+                 dropout: bool = True, circle_m: float = 0.2,
+                 circle_gamma: float = 16.0):
         super().__init__()
-        self.pcd_emb = FFB6DEmb(d_out)
-        self.model_emb = SplineMeshEncoder(9, feat_dim, spline_kernel)
+        keep = 1.0 if dropout else 0.0
+        self.circle_m, self.circle_gamma = circle_m, circle_gamma
+        self.pcd_emb = FFB6DEmb(d_out, drop_psp=0.3 * keep,
+                                drop_up=0.15 * keep)
+        self.model_emb = SplineMeshEncoder(9, feat_dim, spline_kernel,
+                                           dropout=0.1 * keep)
+        self.awl = AutomaticWeightedLoss(2) if awl else None
         self.feature_encoding_layer = MLPHead(
             128, (128, 128, 128, feat_dim), final_bias=False)
         self.normalize_feature_layer = DenseBNAct(feat_dim, feat_dim)
@@ -60,11 +85,28 @@ class GeoMatch(nn.Module):
                               mesh.slot)
 
     def forward(self, inputs: dict, mesh: MeshArrays,
-                mesh_features: torch.Tensor | None = None) -> dict:
+                mesh_features: torch.Tensor | None = None,
+                train: bool = False) -> dict:
         rgbd_emb = self.pcd_emb(inputs)                           # [B,N,128]
         if mesh_features is None:
             mesh_features = self.encode_mesh(mesh)
         rgbd_features = self.feature_encoding_layer(rgbd_emb)
         rgbd_emb = rgbd_emb + self.normalize_feature_layer(rgbd_features)
-        return {"seg": self.seg_layer(rgbd_emb), "mesh": mesh_features,
-                "rgbd": rgbd_features}
+        out = {"seg": self.seg_layer(rgbd_emb), "mesh": mesh_features,
+               "rgbd": rgbd_features}
+        if train:
+            if self.awl is None:
+                raise RuntimeError("train=True needs a GeoMatch built with "
+                                   "awl=True")
+            # positive_r (neighbor_dis_th x diameter) rides in the inputs:
+            # it differs per object
+            match_loss = pointwise_matching_loss(
+                rgbd_features, mesh_features, mesh.xyz, inputs["labels"],
+                inputs["match_idx"], inputs["visible_flag"],
+                inputs["positive_r"], sym_idx=mesh.sym_idx,
+                m=self.circle_m, gamma=self.circle_gamma)
+            seg_loss = focal_loss(out["seg"], inputs["labels"], gamma=2.0)
+            out["loss"] = self.awl(seg_loss, match_loss)
+            out["seg_loss"] = seg_loss
+            out["match_loss"] = match_loss
+        return out

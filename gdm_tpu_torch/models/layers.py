@@ -1,4 +1,4 @@
-"""Shared building blocks (eval-mode forward), channels-last.
+"""Shared building blocks, channels-last, in eval and training mode.
 
 Counterpart of gdm_tpu/models/layers.py.  Parameter names follow the
 reference torch modules that gdm_tpu.train.import_torch.export_state_dict
@@ -6,9 +6,21 @@ emits: a point MLP layer is ``conv.weight`` [out, in] (+ ``conv.bias``
 without BN) and its batch norm sits at ``normlayer.bn.*`` on the CNN /
 fusion side or ``bn.bn.*`` on the RandLA side.
 
-Eval-mode batch norm is ``(x - mean) * rsqrt(var + eps) * scale + bias``,
-as in the JAX package; the default eps is 1e-5 and the RandLA blocks use
-1e-6 with LeakyReLU(0.2).
+Batch norm is ``(x - mean) * rsqrt(var + eps) * scale + bias``, as in the
+JAX package; the default eps is 1e-5 and the RandLA blocks use 1e-6 with
+LeakyReLU(0.2).  In training mode (``module.train()``) it normalises with
+the batch mean and the *biased* batch variance, E[x^2] - E[x]^2 in f32,
+and moves the running statistics by the torch-convention momentum
+``new = (1 - m) * old + m * batch`` with that same biased variance (where
+``torch.nn.BatchNorm`` would take the unbiased one).  The momentum is an
+attribute that the train step sets each step from its schedule
+(:func:`set_train_step_state`), as the reference's BNMomentumScheduler
+does.
+
+Dropout is element-wise, as ``flax.linen.Dropout``: keep with probability
+1 - p, scale the kept values by 1 / (1 - p).  Its masks come from a
+``torch.Generator`` that the train step seeds from (seed, step), so a
+resumed run draws the same masks.
 """
 
 from __future__ import annotations
@@ -21,7 +33,7 @@ from torch import nn
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm over one channel axis (default: the last).
+    """Batch norm over one channel axis (default: the last).
 
     Holds the torch BatchNorm state names (weight, bias, running_mean,
     running_var, num_batches_tracked) so reference state dicts load."""
@@ -31,6 +43,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.channel_dim = channel_dim
+        self.momentum = 0.1
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -39,11 +52,60 @@ class BatchNorm(nn.Module):
                              torch.zeros((), dtype=torch.int64))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
         shape = [1] * x.dim()
         shape[self.channel_dim] = -1
-        return ((x - self.running_mean.view(shape)) * inv.view(shape)
+        if self.training:
+            dims = [d for d in range(x.dim())
+                    if d != self.channel_dim % x.dim()]
+            x32 = x.to(torch.float32)
+            mean = x32.mean(dim=dims)
+            var = torch.clamp_min(
+                torch.square(x32).mean(dim=dims) - torch.square(mean), 0.0)
+            with torch.no_grad():
+                m = torch.tensor(self.momentum, dtype=torch.float32,
+                                 device=x.device)
+                self.running_mean.copy_((1.0 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1.0 - m) * self.running_var
+                                       + m * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean.view(shape)) * inv.view(shape)
                 + self.bias.view(shape))
+
+
+class Dropout(nn.Module):
+    """Element-wise dropout with an explicit generator (flax.linen.Dropout
+    semantics); the identity in eval mode or at p = 0."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in training mode needs a generator "
+                               "(set_train_step_state)")
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_train_step_state(model: nn.Module, momentum: float,
+                         generator: torch.Generator | None) -> None:
+    """Set this step's BN momentum and dropout generator on every
+    BatchNorm and Dropout of ``model``."""
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.momentum = momentum
+        elif isinstance(mod, Dropout):
+            mod.generator = generator
 
 
 class _BNHolder(nn.Module):

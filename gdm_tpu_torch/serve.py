@@ -86,8 +86,7 @@ class PoseEngine:
                                  kernel_size=m.spline_kernel,
                                  k=m.mesh_knn_k)
         self.mesh = MeshArrays.from_graph(graph, self.device)
-        with torch.no_grad(), full_f32():
-            self.mesh_feats = self.model.encode_mesh(self.mesh)
+        self._encode_mesh()
         self.meta = {
             "raw_spec": raw_input_spec(batch, config.data.input_size,
                                        config.data.num_sample_points),
@@ -98,6 +97,16 @@ class PoseEngine:
         }
         # what the pose fit used on the last batch (see run_inference)
         self.last_fit: dict | None = None
+
+    def _encode_mesh(self) -> None:
+        with torch.no_grad(), full_f32():
+            self.mesh_feats = self.model.encode_mesh(self.mesh)
+
+    def load_weights(self, state_dict: dict) -> None:
+        """New reference-named weights (a training run validating its
+        current state): loaded strictly, mesh features encoded again."""
+        weights.load_reference_state_dict(self.model, state_dict)
+        self._encode_mesh()
 
     @property
     def platforms(self):

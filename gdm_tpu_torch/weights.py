@@ -16,7 +16,9 @@ layouts need care:
     transposed or reordered weight never loads scrambled.
 
 BatchNorm ``num_batches_tracked`` buffers are part of the port's state
-and load like any other entry.
+and load like any other entry.  ``awl.params``, the loss weighting, exists
+only in a training model (GeoMatch(awl=True)); an eval model leaves it
+out of a checkpoint it loads.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gdm_tpu_torch.losses.awl import AutomaticWeightedLoss
 from gdm_tpu_torch.models.layers import BatchNorm
 from gdm_tpu_torch.models.pspnet import PReLU
 
@@ -36,6 +39,8 @@ ALIASES = {
     "pcd_emb.cnn_up_stages.3.1.0.weight": "pcd_emb.cnn_up_stages.2.0.0.weight",
     "pcd_emb.cnn_up_stages.3.1.0.bias": "pcd_emb.cnn_up_stages.2.0.0.bias",
 }
+# entries of a training checkpoint that an eval model does not hold
+TRAIN_ONLY = ("awl.params",)
 
 
 def read_reference_checkpoint(dir_or_file: str) -> dict:
@@ -57,9 +62,17 @@ def read_reference_checkpoint(dir_or_file: str) -> dict:
 def load_reference_state_dict(module: nn.Module, state: dict) -> None:
     """Load a reference-named state dict into ``module``, strictly.
 
-    Raises on a missing or unexpected key (aliases excepted) and on a
-    shape that does not match (unit dimensions of a point conv
-    excepted)."""
+    Raises on a missing or unexpected key (aliases, and training-only
+    entries for a module without them, excepted) and on a shape that does
+    not match (unit dimensions of a point conv excepted)."""
+    module.load_state_dict(to_port_names(module, state), strict=True)
+
+
+def to_port_names(module: nn.Module, state: dict) -> dict:
+    """A reference-named dict (numpy or tensors) as tensors under the
+    names and shapes of ``module.state_dict()``: the duplicate
+    ``cnn.final`` names folded, point-conv unit dimensions dropped,
+    training-only entries dropped when ``module`` lacks them."""
     own = module.state_dict()
     out = {}
     for key, val in state.items():
@@ -67,6 +80,8 @@ def load_reference_state_dict(module: nn.Module, state: dict) -> None:
             if ALIASES[key] in state:
                 continue
             key = ALIASES[key]
+        if key in TRAIN_ONLY and key not in own:
+            continue
         t = val if isinstance(val, torch.Tensor) \
             else torch.tensor(np.asarray(val))
         if key in own and own[key].dim() == 2 and t.dim() > 2 \
@@ -74,17 +89,47 @@ def load_reference_state_dict(module: nn.Module, state: dict) -> None:
                 and all(d == 1 for d in t.shape[2:]):
             t = t.reshape(own[key].shape)
         out[key] = t
-    module.load_state_dict(out, strict=True)
+    return out
+
+
+def reference_state_dict(module: nn.Module) -> dict:
+    """``module``'s state dict (CPU tensors) under the reference names,
+    the shared ``cnn.final`` under both of its names, as the reference's
+    own checkpoints hold it."""
+    sd = {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+    for dup, name in ALIASES.items():
+        if name in sd:
+            sd[dup] = sd[name]
+    return sd
+
+
+def load_train_state(model: nn.Module, optimizer, model_state: dict,
+                     optimizer_state: dict) -> None:
+    """Load reference-named weights and optimizer state (numpy or
+    tensors; train/state.py's state dict layout) into a training model
+    and its optimizer: the model strictly, Adam's mu and nu under the
+    same names with the same layout handling.  A JAX TrainState carries
+    over this way, its params, batch_stats and Adam moments exported to
+    reference names by gdm_tpu.train.import_torch.export_state_dict, its
+    count and apply_if_finite counters as they are."""
+    load_reference_state_dict(model, model_state)
+    opt = dict(optimizer_state)
+    for k in ("mu", "nu"):
+        opt[k] = to_port_names(model, opt[k])
+    optimizer.load_state_dict(opt)
 
 
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init, in place: every weight of rank >= 2 from
     N(0, 1/fan_in) (fan_in = product of all dims but the output one),
-    biases 0, BN identity statistics, PReLU 0.25.  The generator is the
-    only source of randomness, so one seed gives the same weights on
-    every device."""
+    biases 0, BN identity statistics, PReLU 0.25, loss weights 1.  The
+    generator is the only source of randomness, so one seed gives the
+    same weights on every device."""
     for mod in module.modules():
+        if isinstance(mod, AutomaticWeightedLoss):
+            mod.params.fill_(1.0)
+            continue
         if isinstance(mod, BatchNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()

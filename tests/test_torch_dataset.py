@@ -204,8 +204,12 @@ def test_dataset_items_equal(bop_root, det_file, mode,  # noqa: F811
 
 def test_dataset_refuses_unported_modes(bop_root):  # noqa: F811
     cfg = port_config(test_data._mini_config())
-    with pytest.raises(NotImplementedError, match="train"):
-        PoseDataset(cfg, 1, "train", data_root=bop_root)
+    ycbv = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, name="ycbv", real_pbr_mix=0.8))
+    with pytest.raises(NotImplementedError, match="YCB-V training"):
+        PoseDataset(ycbv, 1, "train", data_root=bop_root)
+    with pytest.raises(ValueError, match="mode"):
+        PoseDataset(cfg, 1, "val", data_root=bop_root)
     fill = dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, fill_depth=True))
     with pytest.raises(NotImplementedError, match="fill_depth"):
@@ -316,6 +320,18 @@ def test_synthetic_bop_root_decodes_like_jax(tmp_path):
         else:
             with open(a, "rb") as f, open(b, "rb") as g:
                 assert f.read() == g.read(), rel
-    with pytest.raises(NotImplementedError, match="train_pbr"):
-        syn_t.write_synthetic_bop_root(str(tmp_path / "p"), mesh,
-                                       subsets=("train_pbr",))
+    # train_pbr: JPEG frames from the two encoders; the other files equal
+    kw["subsets"] = ("train_pbr",)
+    ra = syn_t.write_synthetic_bop_root(str(tmp_path / "pt"), mesh, **kw)
+    rb = syn_j.write_synthetic_bop_root(str(tmp_path / "pj"), mesh, **kw)
+    jpgs = [f for f in files if "/rgb/" in f]
+    assert jpgs
+    for rel in jpgs:
+        rel = rel.replace("test/", "train_pbr/").replace(".png", ".jpg")
+        a, b = imio.imread_rgb(osp.join(ra, rel)), imread_rgb(
+            osp.join(rb, rel))
+        assert a.shape == b.shape
+        assert np.abs(a.astype(int) - b).mean() < 3.0, rel
+        rel = rel.replace("/rgb/", "/depth/").replace(".jpg", ".png")
+        _assert_same(imio.imread_u16(osp.join(ra, rel)),
+                     imread_u16(osp.join(rb, rel)), rel)

@@ -2,8 +2,11 @@
 which the JAX package's loader calls: decoded arrays are bit-equal for
 8-bit RGB, RGBA, gray, palette and 16-bit gray files written by PIL and
 by cv2, and for a file that uses every filter type; the writer's files
-decode in cv2 to the array written; interlaced PNGs, JPEGs and missing
-files raise."""
+decode in cv2 to the array written; interlaced PNGs, progressive JPEGs
+and missing files raise.  JPEG: baseline files decode bit-equal to
+cv2.imread at qualities 50/75/95 in 4:2:0, 4:2:2, 4:4:4 and gray, at an
+odd size and with restart markers, written by cv2, PIL and the port's
+own encoder."""
 
 import struct
 import zlib
@@ -155,7 +158,7 @@ def test_unsupported_inputs_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="interlaced.png"):
         imio.imread_rgb(inter)
     jpg = str(tmp_path / "frame.jpg")
-    cv2.imwrite(jpg, arr)
+    cv2.imwrite(jpg, arr, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     with pytest.raises(NotImplementedError, match="frame.jpg"):
         imio.imread_rgb(jpg)
     with pytest.raises(FileNotFoundError):
@@ -170,3 +173,88 @@ def test_unsupported_inputs_raise(tmp_path):
         f.write(bad)
     with pytest.raises(ValueError, match="CRC"):
         imio.imread_rgb(rgb)
+
+
+def _textured(rng, h, w):
+    """A frame with gradients, noise and a flat block: every kind of
+    8x8 block a photo has."""
+    yy, xx = np.mgrid[:h, :w]
+    img = np.stack([(xx * 0.4) % 256, (yy * 0.5) % 256,
+                    ((xx + yy) * 0.3) % 256], -1)
+    img = (img + rng.randn(h, w, 3) * 20).clip(0, 255).astype(np.uint8)
+    img[h // 5:h // 2, w // 6:w // 2] = [250, 10, 30]
+    return img
+
+
+_SAMPLING = {"420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+             "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+             "444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444}
+
+
+@pytest.mark.parametrize("quality", [50, 75, 95])
+@pytest.mark.parametrize("layout", ["420", "422", "444", "gray"])
+@pytest.mark.parametrize("restart", [0, 7])
+def test_jpeg_decode_matches_cv2(tmp_path, quality, layout, restart):
+    rng = np.random.RandomState(quality + restart)
+    img = _textured(rng, 481, 641)                  # odd size, both axes
+    path = str(tmp_path / f"q{quality}_{layout}_{restart}.jpg")
+    params = [cv2.IMWRITE_JPEG_QUALITY, quality,
+              cv2.IMWRITE_JPEG_RST_INTERVAL, restart]
+    if layout == "gray":
+        cv2.imwrite(path, img[..., 1], params)
+    else:
+        cv2.imwrite(path, img[..., ::-1], params + [
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR, _SAMPLING[layout]])
+    np.testing.assert_array_equal(imio.imread_rgb(path), _cv_rgb(path))
+
+
+@pytest.mark.parametrize("quality", [75, 95])
+def test_jpeg_decode_of_pil_files_matches_cv2(tmp_path, quality):
+    img = _textured(np.random.RandomState(1), 120, 160)
+    path = str(tmp_path / "pil.jpg")
+    Image.fromarray(img).save(path, quality=quality)
+    np.testing.assert_array_equal(imio.imread_rgb(path), _cv_rgb(path))
+
+
+@pytest.mark.parametrize("subsample,restart", [(True, 0), (False, 0),
+                                               (True, 5)])
+def test_port_jpeg_encoder_files(tmp_path, subsample, restart):
+    """The port's own baseline files: cv2 decodes them, to the port's
+    decode bit for bit, and close to the image written."""
+    img = _textured(np.random.RandomState(2), 97, 131)
+    path = str(tmp_path / "own.jpg")
+    imio.imwrite_jpeg(path, img, quality=95, subsample=subsample,
+                      restart_interval=restart)
+    got = imio.imread_rgb(path)
+    np.testing.assert_array_equal(got, _cv_rgb(path))
+    err = np.abs(got.astype(int) - img).mean()
+    assert err < (12.0 if subsample else 4.0), err
+    gray = str(tmp_path / "own_gray.jpg")
+    imio.imwrite_jpeg(gray, img[..., 0], quality=90)
+    np.testing.assert_array_equal(imio.imread_rgb(gray), _cv_rgb(gray))
+
+
+def test_jpeg_huffman_tables_are_the_standard_ones(tmp_path):
+    """The encoder's DHT and DQT segments equal libjpeg's (cv2's) at the
+    same quality: the Annex K tables and libjpeg's quality scaling."""
+    img = _textured(np.random.RandomState(3), 32, 48)
+    own, ref = str(tmp_path / "own.jpg"), str(tmp_path / "cv.jpg")
+    imio.imwrite_jpeg(own, img, quality=80)
+    cv2.imwrite(ref, img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 80])
+
+    def segments(path, marker):
+        data = open(path, "rb").read()
+        out, pos = [], 2
+        while pos < len(data) and data[pos] == 0xFF:
+            m = data[pos + 1]
+            n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+            if m == marker:
+                out.append(data[pos + 4:pos + 2 + n])
+            if m == 0xDA:
+                break
+            pos += 2 + n
+        return b"".join(out)
+
+    for marker in (0xC4, 0xDB):
+        a, b = segments(own, marker), segments(ref, marker)
+        assert a and a == b, hex(marker)

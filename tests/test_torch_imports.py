@@ -1,7 +1,8 @@
 """The PyTorch port runs where JAX is not installed and without the JAX
-package: every module of gdm_tpu_torch loads with jax, flax and gdm_tpu
-blocked, and no source file of the port (chip_smoke.py included) imports
-them, nor cv2, PIL or tabulate, which the GPU host lacks."""
+package: every module of gdm_tpu_torch (the training slice's included)
+loads with jax, flax, gdm_tpu, cv2, PIL and tabulate blocked, and no
+source file of the port (chip_smoke.py included) imports them: the GPU
+host has none of them."""
 
 import os
 import os.path as osp
@@ -26,8 +27,13 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "gdm_tpu_torch.serve" in mods and len(mods) >= 20
+    for m in ("losses.matching", "train.step", "train.checkpoint",
+              "train.state", "train.schedules", "data.gt_gen",
+              "ops.visibility", "utils.logging"):
+        assert f"gdm_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
-            "for name in ('jax', 'flax', 'gdm_tpu'):\n"
+            "for name in ('jax', 'flax', 'gdm_tpu', 'cv2', 'PIL', "
+            "'tabulate'):\n"
             "    sys.modules[name] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"

@@ -127,7 +127,7 @@ def test_batchnorm_eval_matches_flax(eps):
               "bias": rng.randn(8).astype(np.float32)}
     ref = BatchNormJ(epsilon=eps).apply(
         {"params": params, "batch_stats": stats}, jnp.asarray(x), False)
-    bn = BatchNorm(8, eps)
+    bn = BatchNorm(8, eps).eval()
     bn.load_state_dict({"weight": torch.from_numpy(params["scale"]),
                         "bias": torch.from_numpy(params["bias"]),
                         "running_mean": torch.from_numpy(stats["mean"]),
