@@ -10,10 +10,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. Kernel: ``cosine_argmax`` (the CUDA kernel) against
    ``cosine_argmax_reference`` on the same CUDA tensors, at the serving
    shape [8*4096, 128] x [4096, 128], at the eval shape [128*4096, 128] x
+   [4096, 128], at the shape of train's validation [24*4096, 128] x
    [4096, 128], at a ragged [1100, 128] x [700, 128], with exactly tied
    mesh rows and with an all-zero scene row.  Scores agree within 1e-5,
    indices agree on every row whose plain top-2 gap exceeds 1e-5, ties go
-   to the lowest index.  Median times of both at the two main-path shapes,
+   to the lowest index.  Median times of both at the three main-path shapes,
    beside the bound: 2*R*M*C over the f32 FMA peak of this card (SMs x 128
    lanes x 2 x its maximum SM clock).
 3. Serving: GeoMatch at the LMO widths (4096 points, 4096 mesh vertices,
@@ -33,20 +34,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    give the eval CSV's rows and poses, and ``cli score`` of the eval CSV
    its recalls and AUC exactly.  Prints per-batch device ms, the loader's
    ms/sample, frames/s end to end and peak device memory.
-5. Train: a synthetic LM-O tree (object 1, 120 JPEG ``train_pbr`` frames
+5. Train: a synthetic LM-O tree (object 1, 240 JPEG ``train_pbr`` frames
    and 48 ``test`` frames) goes through ``gdm_tpu_torch.cli train`` at the
    LM-O widths and ``train_batch_size`` 24: two epochs validating each
    (the similarity kernel must launch), then ``--epochs 3 --resume``
    (one more epoch, from the checkpoint), then ``cli eval
-   --torch-checkpoint <ckpt_root>/checkpoints`` of the result.  Then: the
+   --torch-checkpoint <ckpt_root>/checkpoints`` of the result.  Every
+   batch that validation and that eval fit is held against the plain
+   argmax on the same features (FitChecks).  Per-step loader wait and
+   step times, and the step loop's samples/s and loader-wait share in
+   three groups of steps (step_loop_rates): cold, while the loader's
+   threads decode, and after they finished the epoch.  Then: the
    train step on the card against the same step on the CPU from the same
-   state and batch at a small size (loss within 1e-4; gradients within
-   1e-3, or within 4x the spread the CPU's own f32 gradient shows when
-   its inputs move by a relative 1e-7); 30 steps on one fixed batch of
+   state and batch at a small size (in float64, each gradient tensor
+   within 1e-3; in f32, the loss within 1e-4 and each gradient tensor
+   within 8x the card's own f32 spread (its inputs moved by a relative
+   1e-7), plus 1e-3, of the CPU's float64 gradient); 30 steps on one fixed batch of
    24 at full width, whose last 5 losses must average below the first
    5; the step split (inputs, forward, backward, optimizer) and
-   device-only samples/s, the loader's ms/sample in train mode by stage,
-   the loader-wait share of the train run and its peak device memory.
+   device-only samples/s, the loader's ms/sample in train mode by stage
+   and the train run's peak device memory.
 
 Output: per-request latency lines, then one JSON line with the kernels,
 the card's name and power limit, and the last line {"ok": true,
@@ -79,7 +86,8 @@ SEED = 0
 SERVE_SHAPE = (8 * 4096, 4096, 128)      # R, M, C at the served batch 8
 EVAL_SHAPE = (128 * 4096, 4096, 128)     # R, M, C at the LM-O eval batch
 EVAL_FRAMES = 160
-TRAIN_FRAMES, VAL_FRAMES, TRAIN_BATCH = 120, 48, 24
+TRAIN_FRAMES, VAL_FRAMES, TRAIN_BATCH = 240, 48, 24
+TRAIN_VAL_SHAPE = (TRAIN_BATCH * 4096, 4096, 128)   # train's validation
 
 
 def log(*args):
@@ -186,8 +194,10 @@ def kernel_phase(sim):
     at = {"serve": time_shape(sim, "serving shape", SERVE_SHAPE, g, peak,
                               reps=20),
           "eval": time_shape(sim, "eval shape", EVAL_SHAPE, g, peak,
-                             reps=10)}
-    errs += [at["serve"]["max_abs_err"], at["eval"]["max_abs_err"]]
+                             reps=10),
+          "train_val": time_shape(sim, "train validation shape",
+                                  TRAIN_VAL_SHAPE, g, peak, reps=20)}
+    errs += [v["max_abs_err"] for v in at.values()]
     torch.cuda.empty_cache()
 
     scene, mesh = unit_rows(1100, 128, g), unit_rows(700, 128, g)
@@ -266,14 +276,48 @@ def check_poses(poses, b):
     return n_fit
 
 
-def check_fit_indices(fit, sim, pose_fit):
+def check_fit_indices(fit, sim, pose_fit, tag="served batch"):
     """The engine's correspondences against the plain argmax on the same
     features (launches of the plain version are not counted)."""
     f = pose_fit.l2_normalise(fit["rgbd"])
     mf = pose_fit.l2_normalise(fit["mesh"])
     idx = fit["idx"].reshape(-1)
     c = f.shape[-1]
-    check_argmax("served batch", idx, None, f.reshape(-1, c), mf)
+    check_argmax(tag, idx, None, f.reshape(-1, c), mf)
+
+
+class FitChecks:
+    """While active, every batch a PoseEngine fits is held against the
+    plain argmax on the same features (check_fit_indices): PoseEngine.infer
+    is wrapped for the duration.  Counts the batches checked and the
+    seconds the checks took."""
+
+    def __init__(self, sim, tag):
+        self.sim, self.tag = sim, tag
+        self.n, self.seconds = 0, 0.0
+
+    def __enter__(self):
+        from gdm_tpu_torch.eval import pose_fit
+        from gdm_tpu_torch.serve import PoseEngine
+
+        self.orig = orig = PoseEngine.infer
+
+        def infer(engine, fin):
+            poses = orig(engine, fin)
+            t0 = time.perf_counter()
+            check_fit_indices(engine.last_fit, self.sim, pose_fit,
+                              f"{self.tag} batch {self.n}")
+            self.seconds += time.perf_counter() - t0
+            self.n += 1
+            return poses
+
+        PoseEngine.infer = infer
+        return self
+
+    def __exit__(self, *exc):
+        from gdm_tpu_torch.serve import PoseEngine
+
+        PoseEngine.infer = self.orig
 
 
 def slice_phase(sim):
@@ -562,14 +606,23 @@ def loader_stages(cfg, root, n=24):
     return t
 
 
-def train_model(cfg, dropout=True):
+def train_model(cfg):
     from gdm_tpu_torch import weights
     from gdm_tpu_torch.models.geomatch import GeoMatch
 
     model = GeoMatch(cfg.model.feat_dim, tuple(cfg.model.randla_d_out),
-                     spline_kernel=cfg.model.spline_kernel, awl=True,
-                     dropout=dropout)
+                     spline_kernel=cfg.model.spline_kernel, awl=True)
     weights.init_random_(model, torch.Generator().manual_seed(SEED))
+    return model
+
+
+def without_dropout(model):
+    """``model`` with every dropout rate set to 0."""
+    from gdm_tpu_torch.models.layers import Dropout
+
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.p = 0.0
     return model
 
 
@@ -590,15 +643,19 @@ def step_parity(root):
     vertices; full model widths; dropout off; TF32 off).  The inputs
     (finalize + KNN pyramid) are made once, on the CPU: the two devices'
     distance blocks round differently, and a flipped near-tie neighbour
-    would change the function compared.  The loss must agree within
-    1e-4.  This model's train-mode f32 gradients move by ~1e-3..1 per
-    tensor when the inputs move by f32's rounding (see
-    tests/test_torch_train.py; printed here as the CPU's spread s_t, the
-    largest change of its f32 gradient when the float inputs move by a
-    relative 1e-7, two draws), so few tensors can agree within 1e-3 and
-    the gradients are held to the CPU's float64 gradient as a whole: the
-    card's f32 gradient must lie no further from it, in L2 over every
-    parameter, than 2x the CPU's f32 gradient does, plus 1e-3."""
+    would change the function compared.
+
+    In float64, where the gradient is defined far beyond 1e-3, every
+    gradient tensor of the card must lie within max|d|/max|ref| <= 1e-3
+    of the CPU's.  In f32, the loss must agree within 1e-4; the f32
+    gradient of this model is only defined to ~1% per tensor (see
+    tests/test_torch_train.py), so each f32 gradient tensor of the card
+    must lie within 8 s_t + 1e-3 of the CPU's float64 one, where s_t is
+    the card's own f32 spread for that tensor (the largest change of its
+    f32 gradient when every float input moves by a relative 1e-7, over
+    four draws).  max|ref| is floored at 1e-6 of the model's largest
+    gradient (biases right before a train-mode BN have a true gradient of
+    0)."""
     import copy
 
     from gdm_tpu_torch import configs
@@ -618,7 +675,7 @@ def step_parity(root):
     with torch.no_grad():
         inputs = train_inputs(finalize_batch(to_device(
             {k: batch[k] for k in BATCH_KEYS}, "cpu")), positive_r(cfg), 512)
-    base = train_model(cfg, dropout=False)
+    base = without_dropout(train_model(cfg))
     step = make_train_step(schedules.bn_momentum_schedule(),
                            positive_r(cfg), knn_chunk=512)
 
@@ -638,44 +695,48 @@ def step_parity(root):
     loss_g, g_gpu = run("cuda", inputs)
     loss_c, g_cpu = run("cpu", inputs)
     _, g_64 = run("cpu", inputs, torch.float64)
+    _, g_gpu64 = run("cuda", inputs, torch.float64)
+    floor = 1e-6 * max(float(np.abs(g).max()) for g in g_64.values())
     gen = torch.Generator().manual_seed(SEED)
-    spread = dict.fromkeys(g_cpu, 0.0)
-    for _ in range(2):
+    spread = dict.fromkeys(g_gpu, 0.0)
+    for _ in range(4):
         moved = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
                  if v.is_floating_point() and k != "positive_r" else v
                  for k, v in inputs.items()}
-        _, g = run("cpu", moved)
-        for k in g_cpu:
-            spread[k] = max(spread[k], rel(g[k], g_cpu[k]))
+        _, g = run("cuda", moved)
+        for k in g_gpu:
+            spread[k] = max(spread[k], rel(g[k], g_gpu[k], floor))
     dloss = abs(loss_g - loss_c) / abs(loss_c)
-    errs = {k: rel(g_gpu[k], g_cpu[k]) for k in g_cpu}
-    direct = sum(e <= 1e-3 for e in errs.values())
-    worst = max(errs.items(), key=lambda kv: kv[1])
+    e64 = {k: rel(g_gpu64[k], g_64[k], floor) for k in g_64}
+    direct = sum(rel(g_gpu[k], g_cpu[k], floor) <= 1e-3 for k in g_cpu)
+    to64 = {k: rel(g_gpu[k], g_64[k], floor) for k in g_64}
+    cpu64 = {k: rel(g_cpu[k], g_64[k], floor) for k in g_64}
+    worse = sorted((to64[k], spread[k], k) for k in to64
+                   if to64[k] > 8 * spread[k] + 1e-3)
     log(f"  step parity (B 4, 1024 points, 64^2 crop, inputs made on the "
-        f"CPU): loss GPU {loss_g:.6f} CPU {loss_c:.6f} (|d|/|ref| "
-        f"{dloss:.3g}); gradient tensors within 1e-3 of the CPU's: {direct} "
-        f"of {len(errs)}; max|d|/max|ref| median "
-        f"{np.median(list(errs.values())):.3g}, worst {worst[1]:.3g} "
-        f"({worst[0]}); the CPU's own spread s_t: median "
-        f"{np.median(list(spread.values())):.3g}")
+        f"CPU): float64 gradients, card against CPU, max|d|/max|ref| worst "
+        f"{max(e64.values()):.3g} over {len(e64)} tensors; f32 loss GPU "
+        f"{loss_g:.6f} CPU {loss_c:.6f} (|d|/|ref| {dloss:.3g}); f32 "
+        f"gradient tensors within 1e-3 of the CPU's f32: {direct} of "
+        f"{len(g_cpu)}; f32 to the CPU's float64, median over tensors: card "
+        f"{np.median(list(to64.values())):.3g}, CPU "
+        f"{np.median(list(cpu64.values())):.3g}; the card's own f32 spread "
+        f"s_t: median {np.median(list(spread.values())):.3g}, max "
+        f"{max(spread.values()):.3g}; card f32 tensors beyond 8 s_t + 1e-3 "
+        f"of the float64 gradient: {len(worse)}")
+    if max(e64.values()) > 1e-3:
+        fail(f"step parity: float64 gradients of the card differ from the "
+             f"CPU's by up to {max(e64.values()):.3g} (> 1e-3)")
     if dloss > 1e-4:
         fail(f"step parity: loss differs by {dloss:.3g} (> 1e-4)")
-    def l2(g):
-        num = sum(float(np.sum((g[k].astype(np.float64) - g_64[k]) ** 2))
-                  for k in g_64)
-        return np.sqrt(num / sum(float(np.sum(v ** 2))
-                                 for v in g_64.values()))
-
-    l2_g, l2_c = l2(g_gpu), l2(g_cpu)
-    log(f"  gradients against the CPU's float64 ones, relative L2 over "
-        f"every parameter: card f32 {l2_g:.3g}, CPU f32 {l2_c:.3g}")
-    if l2_g > 2 * l2_c + 1e-3:
-        fail(f"step parity: the card's gradient is {l2_g:.3g} off the "
-             f"float64 one (L2), the CPU's f32 {l2_c:.3g}")
-    return {"dloss": dloss, "direct": direct, "n": len(errs),
-            "l2_card": l2_g, "l2_cpu": l2_c,
-            "median": float(np.median(list(errs.values()))),
-            "worst": worst[1]}
+    if worse:
+        fail(f"step parity: {len(worse)} f32 gradient tensors of the card "
+             f"lie beyond 8 s_t + 1e-3 of the float64 gradient, worst "
+             f"(err, s_t, name) {worse[-3:]}")
+    return {"dloss": dloss, "max_err64": max(e64.values()),
+            "direct": direct, "n": len(g_cpu),
+            "median_to64": float(np.median(list(to64.values()))),
+            "median_spread": float(np.median(list(spread.values())))}
 
 
 def positive_r(cfg):
@@ -686,10 +747,11 @@ def positive_r(cfg):
         * refdata.get("lmo").diameters_mm_by_id[1] / 1000.0
 
 
-def rel(a, ref):
+def rel(a, ref, floor=1e-30):
+    """max|a - ref| / max|ref|, with max|ref| floored at ``floor``."""
     a = np.asarray(a, np.float64)
     ref = np.asarray(ref, np.float64)
-    return float(np.abs(a - ref).max() / max(np.abs(ref).max(), 1e-30))
+    return float(np.abs(a - ref).max() / max(np.abs(ref).max(), floor))
 
 
 def fixed_batch_steps(cfg, root, n_steps=30):
@@ -738,6 +800,38 @@ def fixed_batch_steps(cfg, root, n_steps=30):
             "first5": first, "last5": last, "peak_gib": peak}
 
 
+def step_loop_rates(steps, cold=2, prefetch=2):
+    """samples/s, the loader-wait share and the median step of the cli
+    train step loop, in three groups of each epoch's steps: cold (the
+    first ``cold``: the loader's pipeline fills, and in a process's first
+    epoch CUDA and cuDNN warm up); loader decoding (the steps during
+    which the loader's threads still decode this epoch's samples, as they
+    do throughout a long epoch); loader done (the last prefetch + 1 steps,
+    whose batches were decoded before they began: the loader's queue
+    holds ``prefetch`` batches and one more is in flight)."""
+    per_epoch = max(r["it"] for r in steps) + 1
+    late = per_epoch - (prefetch + 1)
+    groups = (("cold", lambda it: it < cold),
+              ("loader decoding", lambda it: cold <= it < late),
+              ("loader done", lambda it: it >= max(late, cold)))
+    out = {}
+    for name, member in groups:
+        part = [r for r in steps if member(r["it"])]
+        wait = sum(r["wait_ms"] for r in part)
+        busy = sum(r["wait_ms"] + r["step_ms"] for r in part)
+        out[name] = {"steps": len(part),
+                     "sps": len(part) * TRAIN_BATCH * 1e3 / busy,
+                     "wait_share": wait / busy,
+                     "median_step_ms": float(np.median(
+                         [r["step_ms"] for r in part]))}
+        its = sorted({r["it"] for r in part})
+        log(f"  step loop, {name} ({len(part)} steps, it {its[0]}-{its[-1]} "
+            f"of each epoch): {out[name]['sps']:.2f} samples/s, loader wait "
+            f"{wait:.2f} of {busy:.2f} ms ({wait / busy:.1%}), median step "
+            f"{out[name]['median_step_ms']:.2f} ms")
+    return out
+
+
 def train_phase(sim, workdir):
     """cli train (2 epochs, validating), --resume to 3 epochs, cli eval of
     the result; step parity; the fixed-batch overfit and timings.
@@ -760,32 +854,38 @@ def train_phase(sim, workdir):
               "--eval-every", "1", "--ckpt-root", ckpt_root,
               "--num-workers", "8", "--opt",
               "solver.checkpoint_every_epochs=1"]
-    launches = 0
+    launches, steps = 0, []
     for extra in (["--epochs", "2"], ["--epochs", "3", "--resume"]):
         torch.cuda.reset_peak_memory_stats()
         sim.cosine_argmax.launches = 0
         t0 = time.perf_counter()
-        res = cli.main(common + extra)
-        wall = time.perf_counter() - t0
+        with FitChecks(sim, f"train {' '.join(extra)} validation") as fc:
+            res = cli.main(common + extra)
+        wall = time.perf_counter() - t0 - fc.seconds
         n_launch = sim.cosine_argmax.launches
         launches += n_launch
         timing = res["timing"]
+        steps += timing
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        wait = sum(r["wait_ms"] for r in timing)
-        busy = sum(r["wait_ms"] + r["step_ms"] for r in timing)
         n_samples = len(timing) * TRAIN_BATCH
         val = res["objects"]["ape"]["val"]
         log(f"  cli train {' '.join(extra)}: {len(timing)} steps in "
             f"{wall:.2f} s end to end ({n_samples / wall:.2f} samples/s, "
-            f"engine set-up and validation included; {n_samples * 1e3 / busy:.2f}"
-            f" samples/s over the step loop); loader wait {wait:.2f} ms of "
-            f"{busy:.2f} ms in the step loop ({wait / busy:.1%}); peak device "
-            f"memory {peak:.2f} GiB; similarity kernel launches {n_launch}; "
-            f"validation {val}")
+            f"engine set-up and validation included, the plain checks of "
+            f"validation's {fc.n} batches ({fc.seconds:.2f} s) not); "
+            f"peak device memory {peak:.2f} GiB; similarity kernel launches "
+            f"{n_launch}, each held against the plain argmax; validation "
+            f"{val}")
+        for r in timing:
+            log(f"    epoch {r['epoch']} it {r['it']}: loader wait "
+                f"{r['wait_ms']:.2f} ms, step {r['step_ms']:.2f} ms")
         if n_launch == 0:
             fail("validation did not launch the similarity kernel")
+        if fc.n != n_launch:
+            fail(f"{n_launch} kernel launches but {fc.n} batches checked")
         if val is None or val["val_frames"] != VAL_FRAMES:
             fail(f"validation result {val}")
+    step_loop_rates(steps)
     ckpt_dir = osp.join(ckpt_root, "checkpoints", "ape")
     with open(osp.join(ckpt_dir, "latest")) as f:
         latest = f.read().strip()
@@ -797,10 +897,16 @@ def train_phase(sim, workdir):
     if latest != "epoch_0002" or not all(np.isfinite(losses)):
         fail(f"train: latest {latest}, losses {losses}")
     out = osp.join(workdir, "train_eval")
-    res = cli.main(["eval", "--dataset", "lmo", "--data-root", root,
-                    "--torch-checkpoint", osp.join(ckpt_root, "checkpoints"),
-                    "--cls-id", "1", "--exact-knn", "--batch-size",
-                    str(TRAIN_BATCH), "--output-dir", out])
+    sim.cosine_argmax.launches = 0
+    with FitChecks(sim, "eval of the trained checkpoint") as fc:
+        res = cli.main(["eval", "--dataset", "lmo", "--data-root", root,
+                        "--torch-checkpoint",
+                        osp.join(ckpt_root, "checkpoints"), "--cls-id", "1",
+                        "--exact-knn", "--batch-size", str(TRAIN_BATCH),
+                        "--output-dir", out])
+    if fc.n != sim.cosine_argmax.launches:
+        fail(f"{sim.cosine_argmax.launches} kernel launches but {fc.n} "
+             "batches checked")
     poses = read_csv_poses(osp.join(out, "gt_lmo-test.csv"))
     if len(poses) != VAL_FRAMES:
         fail(f"eval of the trained checkpoint: {len(poses)} rows")
@@ -852,7 +958,8 @@ def main() -> int:
         launches_train, _ = train_phase(sim, workdir)
 
     # one entry per kernel: the eval shape (batch 128, the main path the
-    # package is scored by) first, then the serving shape
+    # package is scored by) first, then the serving shape and the shape
+    # of train's validation (batch 24)
     log(json.dumps({"kernels": [{
         "name": "cosine_argmax",
         "route": "cuda",
@@ -870,6 +977,7 @@ def main() -> int:
         "library_ms": None,
         "shape": list(EVAL_SHAPE),
         "serve": dict(at["serve"], shape=list(SERVE_SHAPE)),
+        "train_val": dict(at["train_val"], shape=list(TRAIN_VAL_SHAPE)),
     }]}))
     log(smi.splitlines()[0])
     log(json.dumps({"ok": True, "device": {

@@ -52,19 +52,18 @@ def _fuse_list(c_ins, c_outs) -> nn.ModuleList:
 
 
 class FFB6DEmb(nn.Module):
-    def __init__(self, d_out=(32, 64, 128, 256), drop_psp: float = 0.3,
-                 drop_up: float = 0.15):
+    def __init__(self, d_out=(32, 64, 128, 256)):
         super().__init__()
         layer1, layer2, layer3, layer4 = resnet18_stages()
         self.cnn_pre_stages = Stem()
         self.cnn_ds_stages = nn.ModuleList([
             layer1, layer2, nn.Sequential(layer3, layer4),
-            nn.Sequential(PSPModule(512, 1024), Dropout(drop_psp))])
+            nn.Sequential(PSPModule(512, 1024), Dropout(0.3))])
         # cnn.final serves up stage 2 and, after up_3, the last stage; it
         # is registered once, at cnn_up_stages.2.0
         self.cnn_up_stages = nn.ModuleList([
-            nn.Sequential(PSPUpsample(1024, 256), Dropout(drop_up)),
-            nn.Sequential(PSPUpsample(256, 64), Dropout(drop_up)),
+            nn.Sequential(PSPUpsample(1024, 256), Dropout(0.15)),
+            nn.Sequential(PSPUpsample(256, 64), Dropout(0.15)),
             nn.Sequential(final_layer()),
             nn.Sequential(PSPUpsample(64, 64))])
 

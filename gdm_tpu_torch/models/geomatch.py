@@ -58,21 +58,17 @@ class GeoMatch(nn.Module):
 
     Args:
       awl: hold the loss weighting ``awl.params`` (training).
-      dropout: False sets every dropout rate to 0.
       circle_m, circle_gamma: circle-loss margin and scale.
     """
 
     def __init__(self, feat_dim: int = 128, d_out=(32, 64, 128, 256),
                  spline_kernel: int = 5, awl: bool = False,
-                 dropout: bool = True, circle_m: float = 0.2,
+                 circle_m: float = 0.2,
                  circle_gamma: float = 16.0):
         super().__init__()
-        keep = 1.0 if dropout else 0.0
         self.circle_m, self.circle_gamma = circle_m, circle_gamma
-        self.pcd_emb = FFB6DEmb(d_out, drop_psp=0.3 * keep,
-                                drop_up=0.15 * keep)
-        self.model_emb = SplineMeshEncoder(9, feat_dim, spline_kernel,
-                                           dropout=0.1 * keep)
+        self.pcd_emb = FFB6DEmb(d_out)
+        self.model_emb = SplineMeshEncoder(9, feat_dim, spline_kernel)
         self.awl = AutomaticWeightedLoss(2) if awl else None
         self.feature_encoding_layer = MLPHead(
             128, (128, 128, 128, feat_dim), final_bias=False)

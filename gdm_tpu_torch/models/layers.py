@@ -9,8 +9,9 @@ fusion side or ``bn.bn.*`` on the RandLA side.
 Batch norm is ``(x - mean) * rsqrt(var + eps) * scale + bias``, as in the
 JAX package; the default eps is 1e-5 and the RandLA blocks use 1e-6 with
 LeakyReLU(0.2).  In training mode (``module.train()``) it normalises with
-the batch mean and the *biased* batch variance, E[x^2] - E[x]^2 in f32,
-and moves the running statistics by the torch-convention momentum
+the batch mean and the *biased* batch variance, E[x^2] - E[x]^2 in f32
+(or in the input's dtype when that is wider), and moves the running
+statistics by the torch-convention momentum
 ``new = (1 - m) * old + m * batch`` with that same biased variance (where
 ``torch.nn.BatchNorm`` would take the unbiased one).  The momentum is an
 attribute that the train step sets each step from its schedule
@@ -57,10 +58,10 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = [d for d in range(x.dim())
                     if d != self.channel_dim % x.dim()]
-            x32 = x.to(torch.float32)
-            mean = x32.mean(dim=dims)
+            xa = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xa.mean(dim=dims)
             var = torch.clamp_min(
-                torch.square(x32).mean(dim=dims) - torch.square(mean), 0.0)
+                torch.square(xa).mean(dim=dims) - torch.square(mean), 0.0)
             with torch.no_grad():
                 m = torch.tensor(self.momentum, dtype=torch.float32,
                                  device=x.device)

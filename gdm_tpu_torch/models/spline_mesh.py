@@ -110,12 +110,12 @@ class SplineMeshEncoder(nn.Module):
     (training mode only), Linear -> [n, feat_dim]."""
 
     def __init__(self, c_in: int = 9, feat_dim: int = 128,
-                 kernel_size: int = 5, dropout: float = 0.1):
+                 kernel_size: int = 5):
         super().__init__()
         widths = [c_in] + [feat_dim] * 3
         self.mesh_convs = nn.ModuleList(
             SplineConv(i, o, kernel_size) for i, o in zip(widths, widths[1:]))
-        self.drop = Dropout(dropout)
+        self.drop = Dropout(0.1)   # gdm_tpu/models/spline_mesh.py:140
         self.mesh_final = Dense(sum(widths), feat_dim)
 
     def forward(self, node_x, neigh_idx, basis, slot):

@@ -59,7 +59,7 @@ def problem():
     return build_problem()
 
 
-def build_problem(random_rgb: bool = False):
+def build_problem():
     import jax
     import jax.numpy as jnp
     from _pytest.monkeypatch import MonkeyPatch
@@ -77,14 +77,8 @@ def build_problem(random_rgb: bool = False):
         mesh_j = MeshArraysJ.from_graph(build_j(fps, H.N_MESH))
         data, _ = make_batch(fps, B, H.intrinsics(), im_size=H.IM,
                              n_sample=N_SAMPLE, seed=0)
-        rgb = data["rgb"]
-        if random_rgb:
-            rgb = np.random.RandomState(1).randn(*rgb.shape).astype(
-                np.float32)
-            data["cld_rgb_nrm"][..., 3:6] = rgb.reshape(B, -1, 3)[
-                np.arange(B)[:, None], data["choose"]]
         inputs = assemble_inputs(
-            jnp.asarray(rgb), jnp.asarray(data["cld_rgb_nrm"]),
+            jnp.asarray(data["rgb"]), jnp.asarray(data["cld_rgb_nrm"]),
             jnp.asarray(data["choose"]), jnp.asarray(data["xyz_img"]),
             labels=jnp.asarray(data["labels"], jnp.int32),
             match_idx=jnp.asarray(data["match_idx"], jnp.int32),
@@ -142,8 +136,16 @@ def _centred(inputs):
     return out
 
 
+def _without_dropout(model):
+    """``model`` with every dropout rate set to 0."""
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.p = 0.0
+    return model
+
+
 def _port_model(sd):
-    m = GeoMatch(awl=True, dropout=False)
+    m = _without_dropout(GeoMatch(awl=True))
     weights.load_reference_state_dict(m, sd)
     return m
 
@@ -175,20 +177,21 @@ def test_train_loss_values_match_jax(problem, port_step, key):
 
 def test_every_gradient_matches_jax(problem, port_step):
     """Each gradient tensor agrees with JAX's to max|d|/max|ref| <= 1e-4,
-    or else both f32 gradients lie as close to the float64 one as the
-    gradient itself is defined.
+    or else the port's and JAX's f32 gradients both lie within
+    8 s_t + 1e-4 of the port's float64 gradient, where s_t is the port's
+    own f32 spread for that tensor.
 
-    This model's train-mode gradient is not a smooth function of its
-    inputs at this problem: moving every float input by a relative 1e-12
-    already moves the float64 gradients by ~1% (median over tensors, up
-    to ~5%; ties in the neighbour max-pools and the stacked train-mode
-    BN backward).  Two f32 computations, which differ in their last bits
-    everywhere, land that far apart too.  So each tensor t whose f32
-    gradients miss 1e-4 against each other is held to its own spread
-    s_t: the largest change of the float64 gradient (the port run in
-    float64) when every float input moves by a relative 1e-7 (f32's
-    rounding), over three draws; both the port's and JAX's f32 gradient
-    must lie within 4 s_t + 1e-4 of the unmoved float64 one.
+    A per-tensor 1e-4 between two f32 computations is out of reach at
+    this problem: the train-mode backward of this deep model (stacked
+    train-mode BN over as few as 16 rows, neighbour max-pools) amplifies
+    rounding by ~1e5, so the port's own f32 gradient moves by ~1%
+    (median over tensors, up to ~14% for a few ResNet layer-4 weights)
+    when every float input moves by a relative 1e-7, and lies ~1% from
+    its float64 gradient.  s_t is the largest change of the port's f32
+    gradient of tensor t over four draws of such a move: the port's
+    alone, so JAX's error does not widen it.  The bound stays below the error of a wrong gradient (a
+    sign, a transposition or a missing term moves a tensor by ~1 or 2)
+    for most tensors, and below a flipped sign's for all.
     Errors are max|d| over max|ref|, with max|ref| floored at 1e-6 of
     the largest gradient of the model (a bias right before a train-mode
     BN has a true gradient of 0 and holds rounding noise)."""
@@ -197,6 +200,7 @@ def test_every_gradient_matches_jax(problem, port_step):
     m64, _ = _port_forward_backward(sd, inputs, mesh, torch.float64)
     exact = {k: p.grad.numpy() for k, p in m64.named_parameters()}
     floor = 1e-6 * max(np.abs(g).max() for g in exact.values())
+    grads = {k: p.grad.numpy() for k, p in model.named_parameters()}
 
     def err(a, b):
         return float(np.abs(np.asarray(a, np.float64) - b).max()
@@ -204,28 +208,31 @@ def test_every_gradient_matches_jax(problem, port_step):
 
     rng = np.random.RandomState(11)
     spread = dict.fromkeys(exact, 0.0)
-    for _ in range(3):
-        moved = {k: np.asarray(v, np.float64) * (
-                     1 + 1e-7 * rng.randn(*np.shape(v)))
+    for _ in range(4):
+        moved = {k: (np.asarray(v) * (1 + 1e-7 * rng.randn(*np.shape(v)))
+                     ).astype(np.float32)
                  if np.asarray(v).dtype == np.float32 and k != "positive_r"
                  else v for k, v in inputs.items()}
-        m, _ = _port_forward_backward(sd, moved, mesh, torch.float64)
+        m, _ = _port_forward_backward(sd, moved, mesh)
         for k, p in m.named_parameters():
-            spread[k] = max(spread[k], err(p.grad.numpy(), exact[k]))
+            spread[k] = max(spread[k], err(p.grad.numpy(), grads[k]))
     direct, worse = 0, []
-    for name, p in model.named_parameters():
-        assert p.grad is not None and torch.isfinite(p.grad).all(), name
-        got = p.grad.numpy()
-        ref = np.asarray(problem["grads"][name]).reshape(p.shape)
+    for name, got in grads.items():
+        assert np.isfinite(got).all(), name
+        ref = np.asarray(problem["grads"][name]).reshape(got.shape)
         if H.rel_err(got, ref) <= GRAD_TOL:
             direct += 1
             continue
+        bound = 8 * spread[name] + GRAD_TOL
         e_p, e_j = err(got, exact[name]), err(ref, exact[name])
-        if e_p > 8 * max(spread[name], e_j) + GRAD_TOL \
-                or e_j > 8 * max(spread[name], e_p) + GRAD_TOL:
+        if e_p > bound or e_j > bound:
             worse.append((e_p, e_j, spread[name], name))
     assert not worse, worse
     assert direct >= 5 and len(exact) > 300
+    # the bound stays informative: ~1 in the median, and below 2 (a
+    # tensor of the wrong sign) for every tensor
+    assert np.median(list(spread.values())) <= 0.03
+    assert max(spread.values()) <= 0.2
 
 
 def test_batch_norm_statistics_match_jax(problem, port_step):
@@ -355,7 +362,7 @@ def test_one_step_from_a_carried_over_state(problem, monkeypatch):
     step_j = make_step_j(bnm, build_pyramid_in_step=False, donate=False)
     st, _ = step_j(st, problem["inputs"], problem["mesh_j"], problem["key"])
 
-    model = GeoMatch(awl=True, dropout=False)
+    model = _without_dropout(GeoMatch(awl=True))
     ts = tstate.create_train_state(model, schedules.cyclic_lr(1e-6, 1e-3, 2),
                                    0.0, 5)
     weights.load_train_state(

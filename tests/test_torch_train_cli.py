@@ -2,12 +2,19 @@
 of tests/test_data.py (4 train_pbr JPEG frames, batch 2): the metrics
 JSONL holds the JAX CLI's keys, checkpoints follow the
 ``checkpoints/<obj>/epoch_NNNN`` + ``latest`` layout with a
-``geomatch.pth.tar`` copy beside them, a resumed run reproduces the
-uninterrupted run's next epoch exactly, and the trained checkpoint
-evaluates in both packages' ``cli eval --torch-checkpoint`` to the same
-CSV rows.  (Poses are not compared: under two steps of training every
-scene point still matches about one mesh vertex, where a Kabsch fit has
-no defined rotation; tests/test_torch_cli.py compares poses.)"""
+``geomatch.pth.tar`` copy beside them, and a resumed run reproduces the
+uninterrupted run's next epoch exactly.
+
+The trained checkpoint goes through both packages' ``cli eval
+--torch-checkpoint`` (equal CSV rows), and, on one batch of the four
+test frames, through the JAX package's strict import (every flax leaf
+must come from the file) and the port's loader, into each package's
+eval forward on the same inputs: the seg logits and the scene and mesh
+features agree within max|d|/max|ref| <= 1e-4.  After four steps of
+training the seg head calls no point foreground, so both CSVs hold the
+miss pose on every row; the seg logits' agreement is what makes that
+equality mean something.  (Fitted poses and correspondences are
+compared in tests/test_torch_cli.py, under weights that fit.)"""
 
 import json
 import os
@@ -17,12 +24,13 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_harness as H
 import test_data
-from test_data import bop_root  # noqa: F401
+from test_data import N_MESH, bop_root  # noqa: F401
 from test_torch_cli import _read_csv
 from test_torch_dataset import port_config
 from gdm_tpu_torch import cli as cli_t
-from gdm_tpu_torch import configs
+from gdm_tpu_torch import configs, weights
 
 torch.set_num_threads(1)
 JSONL_KEYS = {"ts", "obj", "epoch", "it", "step", "loss", "seg_loss",
@@ -126,8 +134,72 @@ def test_both_packages_evaluate_the_trained_checkpoint(runs, tmp_path):
     rows_t, keys_t = _read_csv(osp.join(out_t, "gt_lmo-test.csv"))
     assert keys_t == keys_j and len(keys_t) == 4
     for k in keys_t:
-        assert np.isfinite(rows_t[k][0]).all() and np.isfinite(
-            rows_t[k][1]).all()
+        np.testing.assert_array_equal(rows_t[k][0], rows_j[k][0])
+        np.testing.assert_array_equal(rows_t[k][1], rows_j[k][1])
+
+
+@pytest.fixture(scope="module")
+def trained_outputs(runs):
+    """The trained top-level geomatch.pth.tar on one batch of the 4 test
+    frames, through the JAX package (strict import into a flax init of
+    the same model, eval forward) and through the port
+    (weights.read_reference_checkpoint into GeoMatch, as the eval engine
+    loads it, eval forward), on the same model inputs: two finalize + KNN
+    runs could flip a near-tie neighbour."""
+    import jax.numpy as jnp
+
+    from gdm_tpu.data.pipeline import assemble_inputs, finalize_batch
+    from gdm_tpu.models.geomatch import MeshArrays
+    from gdm_tpu.models.spline_mesh import build_mesh_graph
+    from gdm_tpu.train.import_torch import import_state_dict
+    from gdm_tpu_torch.data.dataset import PoseDataset
+    from gdm_tpu_torch.data.loader import collate
+    from gdm_tpu_torch.data.ply import load_or_build_fps_mesh
+    from gdm_tpu_torch.models import geomatch as geomatch_t
+    from gdm_tpu_torch.models import spline_mesh as spline_mesh_t
+
+    root, cfg = runs["root"], configs.get_config("lmo")
+    ds = PoseDataset(cfg, 1, "test", data_root=root)
+    batch, _ = collate([ds[i] for i in range(len(ds))])
+    raw = {k: batch[k] for k in ("rgb_u8", "dpt_u16", "dpt_scale", "K_crop",
+                                 "choose", "det")}
+    fps = load_or_build_fps_mesh(root, 1, N_MESH)
+    fps_mm = np.concatenate([fps[:, :3] * 1000.0, fps[:, 3:]], axis=1)
+    mesh = MeshArrays.from_graph(build_mesh_graph(fps_mm, N_MESH))
+    fin = finalize_batch({k: jnp.asarray(v) for k, v in raw.items()})
+    inputs = assemble_inputs(fin["rgb"], fin["cld_rgb_nrm"], fin["choose"],
+                             fin["xyz_img"], approx=False)
+    model, init = H.jax_model_and_variables(inputs, mesh)
+    sd = weights.read_reference_checkpoint(
+        osp.join(runs["straight"], "checkpoints", "ape"))
+    params, stats, report = import_state_dict(
+        init["params"], init["batch_stats"],
+        {k: v.numpy() for k, v in sd.items()}, strict=True)
+    out = model.apply({"params": params, "batch_stats": stats}, inputs,
+                      mesh, train=False)
+
+    port = geomatch_t.GeoMatch().eval()
+    weights.load_reference_state_dict(port, sd)
+    mesh_t = geomatch_t.MeshArrays.from_graph(
+        spline_mesh_t.build_mesh_graph(fps_mm, N_MESH), "cpu")
+    with torch.no_grad():
+        out_t = port(H.to_torch(inputs), mesh_t)
+    return {"jax": {k: np.asarray(v) for k, v in out.items()},
+            "port": {k: v.numpy() for k, v in out_t.items()},
+            "unused": report["unused"]}
+
+
+def test_jax_import_of_the_trained_checkpoint_is_complete(trained_outputs):
+    # strict=True raised on any flax leaf missing from the file; of the
+    # file, only the training-only loss weights have no eval leaf
+    assert set(trained_outputs["unused"]) <= {"awl.params"}
+
+
+@pytest.mark.parametrize("key", ["seg", "rgbd", "mesh"])
+def test_trained_checkpoint_outputs_match_jax(trained_outputs, key):
+    got, ref = trained_outputs["port"][key], trained_outputs["jax"][key]
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    assert H.rel_err(got, ref) <= 1e-4, H.rel_err(got, ref)
 
 
 @pytest.mark.parametrize("flag", [["--pretrained-backbone", "x.pth"],
