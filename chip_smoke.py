@@ -34,7 +34,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    give the eval CSV's rows and poses, and ``cli score`` of the eval CSV
    its recalls and AUC exactly.  Prints per-batch device ms, the loader's
    ms/sample, frames/s end to end and peak device memory.
-5. Train: a synthetic LM-O tree (object 1, 240 JPEG ``train_pbr`` frames
+5. Refine: ``cli eval --refine ransac|icp|meanshift`` at b=128 on the
+   eval phase's tree and checkpoint: one kernel launch per batch plus the
+   warm-up, every batch's correspondences held against the plain argmax,
+   160 valid rows, the unrefined run's miss sentinels kept; per-batch
+   device ms beside refine=None's and peak memory.  Then the refine ops
+   on the card against the CPU on a well-posed problem (posed mesh
+   points, 2 mm noise, 30% outliers, b=128 x 4096): equal RANSAC
+   hypotheses, poses within REFINE_CARD_TOL, each op's time at b=128.
+6. Stacked: a synthetic tree of the 8 LM-O objects x 16 ``test`` frames,
+   a seeded random checkpoint each, through ``cli infer --stacked``
+   (by_class, group 4), ``--stacked-schedule vmap``, ``--stacked
+   --refine icp`` and the per-object ``cli infer``: the same CSV rows,
+   valid poses, kernel launches as scheduled (one per group, or per row,
+   plus the warm-up); in process, one mixed batch of 128 through the
+   stacked engine (both schedules) against each object's engine, each
+   object's features centred so that its matches spread and its fits are
+   well posed (every stacked correspondence held against the plain
+   argmax, Kabsch weights equal, correspondences equal beyond near-ties,
+   poses within STACKED_POSE_TOL where the weighted correspondences
+   agree); frames/s and peak memory of each run.
+7. Train: a synthetic LM-O tree (object 1, 240 JPEG ``train_pbr`` frames
    and 48 ``test`` frames) goes through ``gdm_tpu_torch.cli train`` at the
    LM-O widths and ``train_batch_size`` 24: two epochs validating each
    (the similarity kernel must launch), then ``--epochs 3 --resume``
@@ -88,6 +108,19 @@ EVAL_SHAPE = (128 * 4096, 4096, 128)     # R, M, C at the LM-O eval batch
 EVAL_FRAMES = 160
 TRAIN_FRAMES, VAL_FRAMES, TRAIN_BATCH = 240, 48, 24
 TRAIN_VAL_SHAPE = (TRAIN_BATCH * 4096, 4096, 128)   # train's validation
+REFINE_MODES = ("ransac", "icp", "meanshift")
+# frames of the card-against-CPU refine check (frame 1 has half of its
+# weights 0); mean-shift takes ~0.2 s per shift and frame on 8 host cores
+# and reaches its cap of 50 shifts here
+REFINE_CPU_FRAMES = {"ransac": 8, "icp": 8, "meanshift": 2}
+# |card pose - CPU pose| of a refine op.  Mean-shift's centre is the first
+# of the shifted points tied for the most neighbours within the bandwidth;
+# on the refine problem every frame reaches the 50-shift cap, and those
+# points still spread over up to 2.7 mm (CPU, 3 frames): a count that
+# differs by one at the bandwidth's edge picks another of them.
+REFINE_CARD_TOL = {"ransac": 1e-4, "icp": 1e-4, "meanshift": 5e-3}
+STACKED_FRAMES, STACKED_GROUP = 16, 4   # per object; rows per forward
+STACKED_POSE_TOL = 1e-4   # |stacked pose - per-object pose|, same matches
 
 
 def log(*args):
@@ -223,7 +256,7 @@ def kernel_phase(sim):
     return max(errs), at
 
 
-def random_weights(cfg):
+def random_weights(cfg, seed=SEED):
     """Seeded random GeoMatch weights at ``cfg``'s widths.  Random seg
     heads rarely call any point foreground; the last seg layer is set so
     that every point is foreground and each frame runs the full fit (the
@@ -233,7 +266,7 @@ def random_weights(cfg):
 
     model = GeoMatch(cfg.model.feat_dim, tuple(cfg.model.randla_d_out),
                      spline_kernel=cfg.model.spline_kernel)
-    weights.init_random_(model, torch.Generator().manual_seed(SEED))
+    weights.init_random_(model, torch.Generator().manual_seed(seed))
     sd = model.state_dict()
     sd["seg_layer.3.conv.weight"].zero_()
     sd["seg_layer.3.conv.bias"].copy_(torch.tensor([0.0, 1.0]))
@@ -442,7 +475,8 @@ def knn_chunk_sweep(cfg, root, ckpt, batch):
 
 def eval_phase(sim, workdir):
     """cli eval | infer | score on a synthetic LM-O tree at batch 128.
-    Returns the kernel launches of the eval run."""
+    Returns the kernel launches and the per-batch timing of the eval
+    run."""
     from gdm_tpu_torch import cli
     from gdm_tpu_torch.configs import LMO as cfg
     from gdm_tpu_torch.data.synthetic import make_object, \
@@ -527,7 +561,376 @@ def eval_phase(sim, workdir):
         fail("score of the eval CSV does not reproduce eval's recalls/AUC")
     log(f"  score of the eval CSV reproduces eval's recalls exactly and its "
         f"AUC {res['auc']['ape']:.6f} to {dauc:.3g}")
+    return launches, timing
+
+
+def refine_eval_runs(sim, workdir, base_timing):
+    """cli eval --refine {ransac,icp,meanshift} at b=128 on the eval
+    phase's tree and checkpoint: kernel launches (one per batch plus the
+    warm-up), every batch's correspondences against the plain argmax
+    (FitChecks), 160 valid rows, the unrefined run's miss sentinels kept;
+    per-batch device ms beside refine=None's and peak device memory.
+    Returns the launches of the three runs."""
+    from gdm_tpu_torch import cli
+
+    root, ckpt = osp.join(workdir, "lmo"), osp.join(workdir, "ckpt")
+    plain = read_csv_poses(osp.join(workdir, "out", "gt_lmo-test.csv"))
+    missed = [k for k, p in plain.items() if p[2, 3] <= -999.0]
+    common = ["--dataset", "lmo", "--data-root", root, "--torch-checkpoint",
+              ckpt, "--cls-id", "1", "--exact-knn", "--num-workers", "8"]
+    base = ", ".join(f"{b['device_ms']:.2f}" for b in base_timing)
+    launches = 0
+    for mode in REFINE_MODES:
+        out = osp.join(workdir, f"out_{mode}")
+        torch.cuda.reset_peak_memory_stats()
+        sim.cosine_argmax.launches = 0
+        with FitChecks(sim, f"eval --refine {mode}") as fc:
+            res = cli.main(["eval", *common, "--refine", mode,
+                            "--output-dir", out])
+        n_launch = sim.cosine_argmax.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        timing = res["timing"]
+        if n_launch != len(timing) + 1 or fc.n != n_launch:
+            fail(f"eval --refine {mode}: {n_launch} kernel launches, "
+                 f"{fc.n} batches checked, {len(timing)} batches")
+        poses = read_csv_poses(osp.join(out, "gt_lmo-test.csv"))
+        if list(poses) != list(plain):
+            fail(f"eval --refine {mode}: CSV rows differ from eval's")
+        n_fit = check_poses(np.stack(list(poses.values())), EVAL_FRAMES)
+        if any(not np.array_equal(poses[k], plain[k]) for k in missed):
+            fail(f"eval --refine {mode}: a miss sentinel was refined")
+        launches += n_launch
+        log(f"  eval --refine {mode}: per-batch device ms "
+            + ", ".join(f"{b['device_ms']:.2f}" for b in timing)
+            + f" (refine=None: {base}); peak device memory {peak:.2f} GiB; "
+            f"kernel launches {n_launch}, each held against the plain "
+            f"argmax; {len(poses)} rows, {n_fit} fitted, every R a "
+            f"rotation or the miss sentinel; {len(missed)} sentinels of the "
+            "unrefined run kept")
     return launches
+
+
+def refine_problem(b, n, seed):
+    """A well-posed problem at the LM-O widths (tests/test_torch_refine.py
+    _problem): b frames of a 4096-vertex mesh (a Gaussian blob, 5 cm) under
+    random poses, each scene point a posed vertex (each vertex once) with
+    2 mm noise, the first 30% displaced by ~0.2 m; frame 1's weights half
+    0.  Returns CPU tensors (cld [b,n,3], w [b,n], idx [b,n], mesh
+    [n,3])."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.RandomState(seed)
+    mesh = rng.randn(n, 3).astype(np.float32) * 0.05
+    R = Rotation.random(b, random_state=seed).as_matrix().astype(np.float32)
+    t = (np.array([0.02, -0.01, 0.5]) + 0.05 * rng.randn(b, 3)
+         ).astype(np.float32)
+    sel = np.stack([rng.permutation(n) for _ in range(b)])
+    cld = np.einsum("bnj,bij->bni", mesh[sel], R) + t[:, None]
+    cld = cld + rng.randn(b, n, 3).astype(np.float32) * 0.002
+    cld[:, :int(0.3 * n)] += rng.randn(b, int(0.3 * n), 3).astype(
+        np.float32) * 0.2
+    w = np.ones((b, n), np.float32)
+    w[1, ::2] = 0.0
+    f = torch.from_numpy
+    return (f(cld.astype(np.float32)), f(w), f(sel.astype(np.int64)),
+            f(mesh))
+
+
+def refine_parity():
+    """The port's refine ops on the card against the CPU on the
+    well-posed problem at b=128 x 4096 points: the RANSAC hypotheses
+    (integer bits) equal on REFINE_CPU_FRAMES frames, each mode's poses
+    within REFINE_CARD_TOL there, the mean-shift shifts per frame, and
+    each mode's median time on the card for the whole batch (CUDA
+    events).  Returns {mode: ms}."""
+    from gdm_tpu_torch.eval import pose_fit
+    from gdm_tpu_torch.ops import prng
+    from gdm_tpu_torch.ops.kabsch import weighted_kabsch
+    from gdm_tpu_torch.ops.meanshift import mean_shift
+
+    cld, w, idx, mesh = refine_problem(EVAL_SHAPE[0] // EVAL_SHAPE[1],
+                                       EVAL_SHAPE[1], SEED + 5)
+    dev = [x.cuda() for x in (cld, w, idx, mesh)]
+
+    def draw(c, wt, ix):
+        keys = prng.fold_in(prng.prng_key(0, c.device), ix.sum(-1))
+        g = prng.gumbel(keys, (32, c.shape[1])) + torch.log(
+            torch.clamp_min(wt, 1e-9))[:, None]
+        return torch.sort(torch.topk(g, 4, dim=-1).indices, -1).values
+
+    k = REFINE_CPU_FRAMES["ransac"]
+    same = torch.equal(draw(*dev[:3])[:k].cpu(),
+                       draw(cld[:k], w[:k], idx[:k]))
+    rt = weighted_kabsch(dev[3][dev[2]], dev[0], dev[1])
+    votes = dev[0] - dev[3][dev[2]] @ rt[:, :, :3].transpose(1, 2)
+    shifts = mean_shift(votes, 0.05, dev[1])[2]
+    log(f"  mean-shift shifts per frame on the card: median "
+        f"{float(shifts.float().median()):.0f}, max {int(shifts.max())} "
+        f"(cap 50)")
+    log(f"  RANSAC hypothesis indices (32 x 4 per frame), card against CPU "
+        f"on {k} frames: {'equal' if same else 'DIFFERENT'}")
+    if not same:
+        fail("RANSAC drew other hypotheses on the card than on the CPU")
+    times = {}
+    for mode in REFINE_MODES:
+        def run(c, wt, ix, m, mode=mode):
+            rt = weighted_kabsch(m[ix], c, wt)
+            return pose_fit.apply_refine(rt, wt, ix, c, m, mode)
+
+        k = REFINE_CPU_FRAMES[mode]
+        got = run(*dev)                                  # the warm-up
+        ref = run(cld[:k], w[:k], idx[:k], mesh)
+        d = (got[:k].cpu() - ref).abs().amax(dim=(1, 2))
+        err = float(d.max())
+        times[mode] = median_ms(run, *dev, reps=3, warmup=0)
+        log(f"  {mode} on the card, b={cld.shape[0]} x {cld.shape[1]} "
+            f"points: {times[mode]:.2f} ms (median of 3); poses against the "
+            f"CPU's on {k} frames: max|d| {err:.3g} (tolerance "
+            f"{REFINE_CARD_TOL[mode]}), {int((d > 1e-4).sum())} frames "
+            "beyond 1e-4")
+        if not torch.isfinite(got).all() or err > REFINE_CARD_TOL[mode]:
+            fail(f"{mode}: card poses differ from the CPU's by {err}")
+    return times
+
+
+def refine_phase(sim, workdir, base_timing):
+    launches = refine_eval_runs(sim, workdir, base_timing)
+    times = refine_parity()
+    return launches, times
+
+
+def write_stacked_tree(root, ckpt):
+    """STACKED_FRAMES test frames of each LM-O object (its own scene,
+    a mesh of its diameter) and a seeded random checkpoint per object."""
+    from gdm_tpu_torch import refdata
+    from gdm_tpu_torch.configs import LMO as cfg
+    from gdm_tpu_torch.data.synthetic import make_object, \
+        write_synthetic_bop_root
+
+    refd = refdata.get("lmo")
+    rng = np.random.RandomState(SEED + 3)
+    meshes = {oid: make_object(cfg.data.model_pt_num, rng,
+                               radius=refd.diameters_mm_by_id[oid] / 2500.0)
+              for oid in cfg.data.obj_ids}
+    write_synthetic_bop_root(root, meshes, n_frames=STACKED_FRAMES,
+                             subsets=("test",), im_hw=cfg.data.img_hw,
+                             seed=SEED + 3)
+    for p, oid in enumerate(cfg.data.obj_ids):
+        d = osp.join(ckpt, refd.id2obj[oid])
+        os.makedirs(d)
+        torch.save({"model_state": random_weights(cfg, SEED + 10 + p)},
+                   osp.join(d, "geomatch.pth.tar"))
+
+
+def stacked_launches(obj_pos, timing, batch, schedule):
+    """Kernel launches of a stacked run: per loader batch (padded to
+    ``batch`` with its last row) one per forward of ``schedule``, plus
+    the first batch again for the warm-up."""
+    from gdm_tpu_torch.eval.multimodel import row_groups
+
+    n, s = [], 0
+    for b in timing:
+        rows = list(obj_pos[s:s + b["n"]])
+        s += b["n"]
+        rows += rows[-1:] * (batch - len(rows))
+        n.append(len(row_groups(np.array(rows), schedule, STACKED_GROUP)))
+    return sum(n) + n[0]
+
+
+def spread_matches(engine, raw):
+    """Random weights send every scene point to one mesh vertex (scene and
+    mesh features each share one dominant direction), and a Kabsch fit of
+    one vertex has no defined rotation.  Centre both feature sets by linear
+    changes of the engine's last layers, as tests/test_torch_cli.py
+    _spread_matches does: the scene head's last Dense takes its input
+    projected off that input's mean over ``raw``'s frames, and the mesh
+    head's last Dense subtracts the mean mesh feature."""
+    head = engine.model.feature_encoding_layer
+    seen = []
+    hook = head[2].register_forward_hook(lambda m, i, o: seen.append(o))
+    try:
+        engine.run(raw)
+    finally:
+        hook.remove()
+    h0 = seen[0].reshape(-1, seen[0].shape[-1]).double().mean(0)
+    proj = (torch.eye(len(h0), dtype=torch.float64, device=h0.device)
+            - torch.outer(h0, h0) / (h0 @ h0))
+    sd = {k: v.clone() for k, v in engine.model.state_dict().items()}
+    w = "feature_encoding_layer.3.conv.weight"
+    sd[w] = (sd[w].double() @ proj).float()
+    sd["model_emb.mesh_final.bias"] -= engine.mesh_feats.mean(0)
+    engine.load_weights(sd)
+
+
+def stacked_fit_check(root, ckpt, batch):
+    """One mixed batch of every frame, in process, through the stacked
+    engine (by_class and vmap) and through each object's own engine, with
+    each object's features centred (spread_matches) so that matches
+    spread over its mesh: every stacked correspondence held against the
+    plain argmax, the Kabsch weights equal to the per-object engines'
+    on the same rows, the correspondences equal beyond near-ties (top-2
+    gap <= GAP), and the poses within STACKED_POSE_TOL on frames whose
+    weighted correspondences all agree."""
+    from gdm_tpu_torch import cli, refdata, weights
+    from gdm_tpu_torch.configs import LMO as cfg
+    from gdm_tpu_torch.data.dataset import PoseDataset
+    from gdm_tpu_torch.data.loader import collate
+    from gdm_tpu_torch.data.ply import load_or_build_fps_mesh
+    from gdm_tpu_torch.eval import pose_fit
+    from gdm_tpu_torch.eval.multimodel import MultiObjectEngine
+    from gdm_tpu_torch.serve import PoseEngine
+
+    refd = refdata.get("lmo")
+    t0 = time.perf_counter()
+    parts, engines = [], []
+    for oid in cfg.data.obj_ids:
+        parts.append((oid, PoseDataset(cfg, oid, "infer", data_root=root)))
+        fps = load_or_build_fps_mesh(root, oid, cfg.data.model_pt_num)
+        fps[:, :3] *= 1000.0
+        engines.append(PoseEngine(
+            cfg, fps, weights.read_reference_checkpoint(
+                osp.join(ckpt, refd.id2obj[oid])), "cuda", batch=batch,
+            knn_chunk=512))
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mixed = cli.MixedInferDataset(parts)
+    raw, _ = collate([mixed[k] for k in range(len(mixed))])
+    raw = {k: raw[k] for k in engines[0].meta["raw_spec"]} | {
+        "obj_pos": raw["obj_pos"]}
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refs = []
+    for p, e in enumerate(engines):
+        rows = np.nonzero(raw["obj_pos"] == p)[0]
+        own = {k: v[rows] for k, v in raw.items() if k != "obj_pos"}
+        spread_matches(e, own)
+        refs.append((rows, e.run(own), e.last_fit))
+    t_ref = time.perf_counter() - t0
+    spread = [len(torch.unique(fit["idx"][j][fit["w"][j] > 0]))
+              for _, _, fit in refs for j in range(len(fit["idx"]))]
+    log(f"  in process: {len(engines)} engines built in {t_build:.2f} s, "
+        f"the mixed batch of {len(mixed)} loaded in {t_load:.2f} s, features "
+        f"centred and the per-object engines run in {t_ref:.2f} s; matched "
+        f"vertices per frame: median {int(np.median(spread))}, min "
+        f"{min(spread)}")
+    for schedule in ("by_class", "vmap"):
+        t0 = time.perf_counter()
+        stacked = MultiObjectEngine(engines, schedule, STACKED_GROUP)
+        poses = stacked.run(raw)
+        got = stacked.last_fit
+        n_ok, worst = 0, 0.0
+        for p, (e, (rows, ref_poses, ref)) in enumerate(zip(engines, refs)):
+            r = torch.as_tensor(rows, device=got["w"].device)
+            mf = pose_fit.l2_normalise(e.mesh_feats)
+            c = mf.shape[-1]
+            check_argmax(f"stacked ({schedule}) object {p}",
+                         got["idx"][r].reshape(-1), None,
+                         pose_fit.l2_normalise(got["rgbd"][r]).reshape(-1, c),
+                         mf)
+            if not torch.equal(got["w"][r], ref["w"]):
+                fail(f"stacked ({schedule}): Kabsch weights of object {p} "
+                     "differ from its per-object engine's")
+            f = pose_fit.l2_normalise(ref["rgbd"]).reshape(-1, c)
+            top2 = torch.topk(f @ mf.T, 2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1] > GAP).reshape(ref["idx"].shape)
+            bad = int(((got["idx"][r] != ref["idx"]) & sure).sum())
+            if bad:
+                fail(f"stacked ({schedule}): {bad} correspondences of object "
+                     f"{p} differ beyond near-ties from its per-object "
+                     "engine's")
+            agree = ((got["idx"][r] == ref["idx"]) | (ref["w"] == 0)).all(1)
+            for j in np.nonzero(agree.cpu().numpy())[0]:
+                n_ok += 1
+                worst = max(worst, float(np.abs(poses[rows[j]]
+                                                - ref_poses[j]).max()))
+        log(f"  stacked ({schedule}) against the per-object engines, one "
+            f"mixed batch of {len(mixed)} in {time.perf_counter() - t0:.2f} "
+            f"s: Kabsch weights equal, correspondences equal beyond "
+            f"near-ties; weighted correspondences all equal on {n_ok} "
+            f"frames, max |dpose| there {worst:.3g} (tolerance "
+            f"{STACKED_POSE_TOL})")
+        if worst > STACKED_POSE_TOL:
+            fail(f"stacked ({schedule}) poses differ from the per-object "
+                 f"ones by {worst}")
+    del engines, stacked
+    torch.cuda.empty_cache()
+
+
+def stacked_phase(sim, workdir):
+    """cli infer --stacked (by_class, vmap, --refine icp) and the
+    per-object cli infer on the 8-object tree at b=128.  Returns the
+    kernel launches of the stacked runs and their frames/s."""
+    from gdm_tpu_torch import cli
+    from gdm_tpu_torch.configs import LMO as cfg
+
+    root, ckpt = osp.join(workdir, "lmo8"), osp.join(workdir, "ckpt8")
+    batch = cfg.solver.val_batch_size
+    t0 = time.perf_counter()
+    write_stacked_tree(root, ckpt)
+    log(f"  synthetic tree ({len(cfg.data.obj_ids)} objects x "
+        f"{STACKED_FRAMES} test frames) and checkpoints written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    common = ["infer", "--dataset", "lmo", "--data-root", root,
+              "--torch-checkpoint", ckpt, "--exact-knn", "--num-workers",
+              "8"]
+    runs = {}
+    for tag, extra in (
+            ("by_class", ["--stacked"]),
+            ("vmap", ["--stacked", "--stacked-schedule", "vmap"]),
+            ("icp", ["--stacked", "--refine", "icp"]),
+            ("per_object", [])):
+        csv = osp.join(workdir, f"stacked_{tag}.csv")
+        torch.cuda.reset_peak_memory_stats()
+        sim.cosine_argmax.launches = 0
+        t0 = time.perf_counter()
+        res = cli.main(common + extra + ["--output", csv])
+        wall = time.perf_counter() - t0
+        timing = res["timing"]
+        frames = sum(b["n"] for b in timing)
+        dev_s = sum(b["device_ms"] for b in timing) / 1e3
+        runs[tag] = {"poses": read_csv_poses(csv),
+                     "launches": sim.cosine_argmax.launches,
+                     "timing": timing, "fps_device": frames / dev_s,
+                     "fps_wall": frames / wall}
+        log(f"  infer {' '.join(extra) or '(per object)'}: {frames} frames "
+            f"in {len(timing)} batches, device ms per batch "
+            + ", ".join(f"{b['device_ms']:.2f}" for b in timing)
+            + f"; {frames / dev_s:.2f} frames/s device, {frames / wall:.2f} "
+            f"frames/s end to end (engine builds and warm-up included); "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; kernel "
+            f"launches {sim.cosine_argmax.launches}")
+    keys = list(runs["by_class"]["poses"])
+    n_frames = len(cfg.data.obj_ids) * STACKED_FRAMES
+    if len(keys) != n_frames:
+        fail(f"stacked CSV has {len(keys)} rows, want {n_frames}")
+    for tag in ("vmap", "icp"):
+        if list(runs[tag]["poses"]) != keys:
+            fail(f"infer --stacked ({tag}): CSV rows differ from by_class's")
+    if sorted(runs["per_object"]["poses"]) != sorted(keys):
+        fail("per-object infer CSV rows differ from the stacked run's")
+    for tag, r in runs.items():
+        check_poses(np.stack(list(r["poses"].values())), n_frames)
+    pos = {oid: p for p, oid in enumerate(cfg.data.obj_ids)}
+    obj_pos = [pos[k[2]] for k in keys]
+    for tag, schedule in (("by_class", "by_class"), ("vmap", "vmap"),
+                          ("icp", "by_class")):
+        want = stacked_launches(obj_pos, runs[tag]["timing"], batch,
+                                schedule)
+        if runs[tag]["launches"] != want:
+            fail(f"infer --stacked ({tag}): {runs[tag]['launches']} kernel "
+                 f"launches, want {want}")
+    want = 2 * len(cfg.data.obj_ids)     # one batch + the warm-up each
+    if runs["per_object"]["launches"] != want:
+        fail(f"per-object infer: {runs['per_object']['launches']} kernel "
+             f"launches, want {want}")
+    log(f"  CSV rows equal in all four runs ({len(keys)}); every pose a "
+        "rotation; kernel launches as scheduled (by_class: one per group of "
+        f"<= {STACKED_GROUP} same-object rows, vmap: one per row, plus the "
+        "warm-up batch)")
+    stacked_fit_check(root, ckpt, batch)
+    return sum(runs[t]["launches"] for t in ("by_class", "vmap", "icp")), {
+        t: (r["fps_device"], r["fps_wall"]) for t, r in runs.items()}
 
 
 def write_train_tree(root):
@@ -550,7 +953,7 @@ def loader_stages(cfg, root, n=24):
     """ms/sample of the train loader's stages on one thread: JPEG decode,
     the depth and mask decode, the three crops, the HPR hull, the
     radius-NN GT match, and whole samples (1 thread, then 8 threads and
-    8 processes)."""
+    8 processes over the first two batches)."""
     from gdm_tpu_torch.data import bop, crop, gt_gen, imio
     from gdm_tpu_torch.data.dataset import PoseDataset
     from gdm_tpu_torch.data.loader import DataLoader
@@ -596,11 +999,15 @@ def loader_stages(cfg, root, n=24):
         ds[i]
     t["whole sample, 1 thread (hull cached after its first use)"] = \
         (time.perf_counter() - t0) * 1e3 / n
+    # two batches each: spawned workers take ~0.4 s per sample of a
+    # 240-sample epoch on the card's host, start-up included
+    ds.annos = ds.annos[:2 * TRAIN_BATCH]
     for kind in ("thread", "process"):
         dl = DataLoader(ds, TRAIN_BATCH, num_workers=8, workers=kind)
         t0 = time.perf_counter()
         k = sum(b["rgb_u8"].shape[0] for b, _ in dl)
-        t[f"whole sample, 8 {kind} workers"] = (time.perf_counter() - t0) * 1e3 / k
+        t[f"whole sample, 8 {kind} workers, {k} samples (start-up "
+          f"included)"] = (time.perf_counter() - t0) * 1e3 / k
     for name, ms in t.items():
         log(f"  loader (train mode) {name}: {ms:.3f} ms/sample")
     return t
@@ -847,7 +1254,9 @@ def train_phase(sim, workdir):
     write_train_tree(root)
     log(f"  synthetic tree ({TRAIN_FRAMES} JPEG train_pbr + {VAL_FRAMES} "
         f"test frames, 480x640) written in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     loader_stages(cfg, root)
+    log(f"  loader stages measured in {time.perf_counter() - t0:.2f} s")
 
     common = ["train", "--dataset", "lmo", "--data-root", root,
               "--cls-id", "1", "--batch-size", str(TRAIN_BATCH),
@@ -946,16 +1355,30 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
+    t_phase = [time.perf_counter()]
+
+    def phase(name):
+        now = time.perf_counter()
+        log(f"  phase wall time {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+        log(f"{name} phase")
+
     log("kernel phase")
     err, at = kernel_phase(sim)
-    log("serving phase")
+    phase("serving")
     launches_serve = slice_phase(sim)
-    log("eval phase")
+    phase("eval")
     with tempfile.TemporaryDirectory() as workdir:
-        launches_eval = eval_phase(sim, workdir)
-    log("train phase")
+        launches_eval, eval_timing = eval_phase(sim, workdir)
+        phase("refine")
+        launches_refine, _ = refine_phase(sim, workdir, eval_timing)
+    phase("stacked")
+    with tempfile.TemporaryDirectory() as workdir:
+        launches_stacked, _ = stacked_phase(sim, workdir)
+    phase("train")
     with tempfile.TemporaryDirectory() as workdir:
         launches_train, _ = train_phase(sim, workdir)
+    log(f"  phase wall time {time.perf_counter() - t_phase[0]:.1f} s")
 
     # one entry per kernel: the eval shape (batch 128, the main path the
     # package is scored by) first, then the serving shape and the shape
@@ -965,10 +1388,13 @@ def main() -> int:
         "route": "cuda",
         "source": "gdm_tpu_torch/csrc/similarity.cu",
         "replaces": "gdm_tpu/ops/pallas/similarity.py:89",
-        "launches": launches_eval + launches_serve + launches_train,
+        "launches": (launches_eval + launches_serve + launches_train
+                     + launches_refine + launches_stacked),
         "launches_eval": launches_eval,
         "launches_serve": launches_serve,
         "launches_train": launches_train,
+        "launches_refine": launches_refine,
+        "launches_stacked": launches_stacked,
         "max_abs_err": err,
         "ms": at["eval"]["ms"],
         "plain_ms": at["eval"]["plain_ms"],

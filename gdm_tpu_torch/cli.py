@@ -5,9 +5,12 @@ and offline scoring of single-object GeoMatch on a BOP dataset.
         --cls-id 1 --ckpt-root train_log [--epochs 50] [--resume] \\
         [--eval-every 5]
     python -m gdm_tpu_torch.cli eval --dataset lmo --data-root DIR \\
-        --torch-checkpoint CKPT --exact-knn [--cls-id 1]
+        --torch-checkpoint CKPT --exact-knn [--cls-id 1] \\
+        [--refine {ransac,icp,meanshift}] [--icp-reject M]
     python -m gdm_tpu_torch.cli infer --dataset lmo --data-root DIR \\
-        --torch-checkpoint CKPT --exact-knn --output results.csv
+        --torch-checkpoint CKPT --exact-knn --output results.csv \\
+        [--refine ...] [--stacked [--stacked-schedule by_class|vmap] \\
+        [--stacked-group 4]]
     python -m gdm_tpu_torch.cli score --dataset lmo --data-root DIR \\
         --csv results.csv
 
@@ -26,11 +29,18 @@ more as a warm-up, and each frame's ``time`` is the batch's device time
 ``--device cpu`` asks for the CPU; without CUDA, ``--device cuda``
 raises.
 
+``--refine`` refines every fitted pose (eval/pose_fit.apply_refine); the
+ICP gate is ``--icp-reject`` metres, or else ``data.nn_dist_th`` times
+the object's diameter.  ``infer --stacked`` interleaves the objects'
+frames round-robin, so that every batch mixes objects, and sends each
+row to its object's model (eval/multimodel.MultiObjectEngine) with that
+object's ICP gate.
+
 The KNN pyramid is exact: it is the port's only mode.  What the JAX CLI
-offers and the port does not yet (``--refine``, ``--vsd``, ``--save-viz``,
-``--stacked``, ``--model-shards``, and for ``train`` also
-``--pretrained-backbone``, ``--multihost`` and ``--devices`` > 1) raises,
-naming the ROADMAP queue 1 item that brings it.
+offers and the port does not yet (``--vsd``, ``--save-viz``,
+``--model-shards``, and for ``train`` also ``--pretrained-backbone``,
+``--multihost`` and ``--devices`` > 1) raises, naming the ROADMAP queue 1
+item that brings it.
 """
 
 from __future__ import annotations
@@ -49,8 +59,6 @@ import numpy as np
 KNN_BLOCK_ELEMS = 1 << 30
 
 _NOT_PORTED = {
-    "refine": "refinement (ROADMAP queue 1 item 3)",
-    "stacked": "stacked multi-model inference (ROADMAP queue 1 item 5)",
     "vsd": "VSD (ROADMAP queue 1 item 6)",
     "model_shards": "mesh-column sharding (ROADMAP queue 1 item 10)",
     "save_viz": "pose overlays (ROADMAP queue 1 item 11)",
@@ -182,9 +190,19 @@ def _models_info(refd, data_root):
         return {}
 
 
-def _object_engine(cfg, args, obj_name, mesh_fps, device, batch, log):
+def _icp_gate(args, cfg, diameter_m):
+    """The ICP correspondence gate of an object in metres: --icp-reject,
+    or else the dataset's nn_dist_th x diameter (gdm_tpu/cli.py:849)."""
+    if args.icp_reject is not None:
+        return args.icp_reject
+    return cfg.data.nn_dist_th * diameter_m
+
+
+def _object_engine(cfg, args, obj_name, mesh_fps, device, batch, log,
+                   icp_reject=0.01):
     """The PoseEngine of one object: its reference checkpoint, its mesh
-    graph (from the fps layout, xyz in mm) and the eval batch."""
+    graph (from the fps layout, xyz in mm), the eval batch, --refine and
+    the object's ICP gate."""
     from gdm_tpu_torch import weights
     from gdm_tpu_torch.serve import PoseEngine
 
@@ -194,12 +212,14 @@ def _object_engine(cfg, args, obj_name, mesh_fps, device, batch, log):
                             axis=1)
     return PoseEngine(cfg, fps_mm, state, device, batch=batch,
                       knn_chunk=knn_chunk_for(args.knn_chunk, batch, cfg,
-                                              log))
+                                              log),
+                      refine=args.refine, icp_reject=icp_reject)
 
 
 def _run_batches(engine, ds, batch_size, num_workers, timing):
     """Yield (meta row, det, pose [3, 4] float64, seconds per frame) for
     every sample of ``ds``, in order, through ``engine`` at its batch.
+    A sample's ``obj_pos`` (the stacked path's) joins its meta row.
 
     The first batch runs once more as a warm-up (first-call CUDA, cuDNN
     and cuBLAS set-up stay out of the times).  Each batch appends
@@ -235,8 +255,11 @@ def _run_batches(engine, ds, batch_size, num_workers, timing):
         timing.append({"n": n_real, "wait_ms": wait * 1e3,
                        "device_ms": dev * 1e3})
         for i in range(n_real):
-            yield (meta[i], int(batch["det"][i]),
-                   np.asarray(poses[i], np.float64), dev / batch_size)
+            m = meta[i]
+            if "obj_pos" in batch:
+                m = dict(m, obj_pos=int(batch["obj_pos"][i]))
+            yield (m, int(batch["det"][i]), np.asarray(poses[i], np.float64),
+                   dev / batch_size)
 
 
 def _object_mesh(cfg, cls_id, data_root):
@@ -295,7 +318,8 @@ def evaluate(args):
                 obj2id=refd.obj2id, sym_transforms=sym_tfs,
                 im_w=cfg.data.img_hw[1])
         engine = _object_engine(cfg, args, obj_name, mesh_fps, device,
-                                batch_size, log)
+                                batch_size, log,
+                                _icp_gate(args, cfg, diameter))
         n_done = 0
         for meta, det, pose, dt in _run_batches(
                 engine, ds, batch_size, args.num_workers, timing):
@@ -336,14 +360,42 @@ def _write_infer_csv(rows, args, log):
     return {"csv": out_csv, "n": len(rows)}
 
 
+class MixedInferDataset:
+    """Round-robin interleave of per-object infer datasets (gdm_tpu/cli.py
+    _MixedInferDataset), so that consecutive batches mix objects.  Each
+    sample gains ``obj_pos``, the position of its object in ``parts``."""
+
+    def __init__(self, parts):
+        self.parts = parts
+        self.order = [(p, i)
+                      for i in range(max(len(ds) for _, ds in parts))
+                      for p, (_, ds) in enumerate(parts)
+                      if i < len(ds)]
+
+    def __len__(self):
+        return len(self.order)
+
+    def __getitem__(self, k):
+        p, i = self.order[k]
+        s = dict(self.parts[p][1][i])
+        s["obj_pos"] = np.int32(p)
+        return s
+
+
 def infer(args):
     """GT-less deployment inference: frames + detections -> the BOP
-    results CSV that ``score`` re-scores once GT exists."""
+    results CSV that ``score`` re-scores once GT exists.
+
+    By default each object's frames go through its own engine in turn;
+    ``--stacked`` serves the objects' frames interleaved, each batch
+    mixing objects (the stream of a live feed of mixed detections)."""
     from gdm_tpu_torch import refdata
     from gdm_tpu_torch.configs import get_config
     from gdm_tpu_torch.data.dataset import PoseDataset
 
     log = get_logger("infer")
+    if args.stacked and args.model_shards > 1:
+        raise SystemExit("--stacked and --model-shards are exclusive")
     _refuse_unported(args, log)
     device = _device(args)
     cfg = get_config(args.dataset, args.opt)
@@ -354,6 +406,7 @@ def infer(args):
 
     rows = []                       # (file_name, obj_id, pose [3,4], dt)
     timing = []
+    parts = []                      # (cls_id, dataset, engine)
     for cls_id in cls_ids:
         obj_name = refd.id2obj[cls_id]
         ds = PoseDataset(cfg, cls_id, "infer", data_root=args.data_root,
@@ -364,15 +417,31 @@ def infer(args):
             log.warning("no detections for %s%s", obj_name,
                         " (after --targets filter)" if targets else "")
             continue
-        engine = _object_engine(cfg, args, obj_name,
-                                _object_mesh(cfg, cls_id, args.data_root),
-                                device, batch_size, log)
+        engine = _object_engine(
+            cfg, args, obj_name, _object_mesh(cfg, cls_id, args.data_root),
+            device, batch_size, log, _icp_gate(
+                args, cfg, refd.diameters_mm_by_id[cls_id] / 1000.0))
+        if args.stacked:
+            parts.append((cls_id, ds, engine))
+            continue
         n_done = 0
         for meta, _, pose, dt in _run_batches(
                 engine, ds, batch_size, args.num_workers, timing):
             rows.append((meta["file_name"], cls_id, pose, dt))
             n_done += 1
         log.info("%s: %d frames", obj_name, n_done)
+    if parts:
+        from gdm_tpu_torch.eval.multimodel import MultiObjectEngine
+
+        engine = MultiObjectEngine([e for _, _, e in parts],
+                                   args.stacked_schedule, args.stacked_group)
+        mixed = MixedInferDataset([(c, ds) for c, ds, _ in parts])
+        for meta, _, pose, dt in _run_batches(
+                engine, mixed, batch_size, args.num_workers, timing):
+            rows.append((meta["file_name"], parts[meta["obj_pos"]][0], pose,
+                         dt))
+        log.info("stacked (%s): %d frames of %d objects",
+                 args.stacked_schedule, len(rows), len(parts))
     out = _write_infer_csv(rows, args, log)
     out["timing"] = timing
     return out
@@ -738,7 +807,10 @@ def build_parser():
         sp.add_argument("--exact-knn", action="store_true",
                         help="exact KNN pyramid (the port's only mode)")
         sp.add_argument("--refine", choices=["ransac", "icp", "meanshift"],
-                        default=None, help="not ported")
+                        default=None, help="refine each fitted pose")
+        sp.add_argument("--icp-reject", type=float, default=None,
+                        help="ICP correspondence gate in metres (default "
+                             "data.nn_dist_th x object diameter)")
         sp.add_argument("--save-viz", default=None, metavar="DIR",
                         help="not ported")
         sp.add_argument("--model-shards", type=int, default=1,
@@ -798,7 +870,15 @@ def build_parser():
                    help="detection JSON (default <subset>/real_det.json)")
     i.add_argument("--output", default=None,
                    help="results CSV (default output/infer_<dataset>.csv)")
-    i.add_argument("--stacked", action="store_true", help="not ported")
+    i.add_argument("--stacked", action="store_true",
+                   help="mixed-object batches, each row through its "
+                        "object's model (eval/multimodel.py)")
+    i.add_argument("--stacked-schedule", default="by_class",
+                   choices=("by_class", "vmap"),
+                   help="by_class: one forward per run of --stacked-group "
+                        "same-object rows; vmap: one forward per row")
+    i.add_argument("--stacked-group", type=int, default=4,
+                   help="rows per forward of the by_class schedule")
 
     s = sub.add_parser("score", help="offline re-scoring of a BOP results "
                                      "CSV")

@@ -48,10 +48,21 @@ def knn_np(pts: np.ndarray, k: int, chunk: int = 256,
     neighbour repeats, as in gdm_tpu.native.knn."""
     pts = np.ascontiguousarray(pts, np.float32)
     query = pts if query is None else np.ascontiguousarray(query, np.float32)
+    k_eff = min(k, len(pts))
     out = []
     for i in range(0, len(query), chunk):
-        d2 = ((query[i:i + chunk, None, :] - pts[None, :, :]) ** 2).sum(-1)
-        out.append(np.argsort(d2, axis=1, kind="stable")[:, :k])
+        d2 = None
+        for j in range(pts.shape[1]):               # ((dx^2 + dy^2) + dz^2)
+            dj = query[i:i + chunk, None, j] - pts[None, :, j]
+            d2 = dj * dj if d2 is None else d2 + dj * dj
+        # every entry at or below a row's k-th smallest distance (ties
+        # included) is a candidate; sorted by (row, distance, index), the
+        # first k of each row are those of a stable sort of the whole row
+        kth = np.partition(d2, k_eff - 1, axis=1)[:, k_eff - 1:k_eff]
+        rows, cols = np.nonzero(d2 <= kth)
+        order = np.lexsort((cols, d2[rows, cols], rows))
+        start = np.searchsorted(rows[order], np.arange(len(d2)))
+        out.append(cols[order][start[:, None] + np.arange(k_eff)])
     idx = np.concatenate(out).astype(np.int32)
     if idx.shape[1] < k:
         idx = np.concatenate(

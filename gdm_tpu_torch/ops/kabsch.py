@@ -4,7 +4,8 @@ Counterpart of gdm_tpu/ops/kabsch.py.  Zero-weight rows are ignored, so a
 fixed-shape masked set fits exactly like the subset.  H is scaled to a
 largest entry of 1 before the SVD (the factors do not change; degenerate
 correspondence sets give H entries near 1e-19, which batched SVDs handle
-badly), and a reflection is corrected so det(R) = +1.
+badly), and a reflection is corrected so det(R) = +1.  Everything is
+batched over a leading frame axis.
 """
 
 from __future__ import annotations
@@ -34,3 +35,13 @@ def weighted_kabsch(A: torch.Tensor, B: torch.Tensor,
     R = (V * d[:, None, :]) @ Ut
     t = cb - (R @ ca[..., None])[..., 0]
     return torch.cat([R, t[..., None]], dim=2)
+
+
+def kabsch(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Unweighted best-fit [R | t]: weighted_kabsch with unit weights."""
+    return weighted_kabsch(A, B, torch.ones(A.shape[:2], device=A.device))
+
+
+def transform_pts(pts: torch.Tensor, RT: torch.Tensor) -> torch.Tensor:
+    """[b, n, 3] points (or [n, 3], shared) under [b, 3, 4] -> [b, n, 3]."""
+    return pts @ RT[:, :, :3].transpose(1, 2) + RT[:, None, :, 3]

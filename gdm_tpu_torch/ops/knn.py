@@ -59,3 +59,20 @@ def argmin_prefixes(support: torch.Tensor, query: torch.Tensor, prefixes,
         for o, p in zip(outs, prefixes):
             o.append(torch.argmin(d[..., :p], dim=-1, keepdim=True))
     return tuple(torch.cat(o, dim=1) for o in outs)
+
+
+def knn_with_dist(support: torch.Tensor, query: torch.Tensor, k: int,
+                  chunk: int = 512):
+    """:func:`knn` that also returns the euclidean distances: [B, n, 3]
+    support, [B, m, 3] query -> (indices [B, m, k] int64, distances
+    [B, m, k] f32, the square roots of the clamped squared distances).
+    k = 1 is an argmin, ties to the lowest index as in ``top_k``; with
+    fewer support points than k, the last neighbour and its distance
+    repeat."""
+    idx, dist = [], []
+    for s in range(0, query.shape[1], chunk):
+        d = pairwise_sqdist(query[:, s:s + chunk], support)
+        i = topk_block(d, k)
+        idx.append(i)
+        dist.append(torch.gather(d, -1, i))
+    return torch.cat(idx, dim=1), torch.sqrt(torch.cat(dist, dim=1))

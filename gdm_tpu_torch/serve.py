@@ -68,10 +68,13 @@ class PoseEngine:
       batch: the served batch; PoseService pads shorter requests to it.
       knn_chunk: queries per distance block of the KNN pyramid (peak
         memory; no result changes with it).
+      refine: None | 'ransac' | 'icp' | 'meanshift' (eval/pose_fit).
+      icp_reject: the ICP correspondence gate in metres.
     """
 
     def __init__(self, config, mesh_fps: np.ndarray, state_dict: dict,
-                 device, batch: int, knn_chunk: int = 1024):
+                 device, batch: int, knn_chunk: int = 1024,
+                 refine: str | None = None, icp_reject: float = 0.01):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} asked for, but CUDA is "
@@ -82,6 +85,7 @@ class PoseEngine:
         weights.load_reference_state_dict(self.model, state_dict)
         self.model.to(self.device).eval()
         self.knn_chunk = knn_chunk
+        self.refine, self.icp_reject = refine, float(icp_reject)
         graph = build_mesh_graph(mesh_fps, m.n_mesh_node,
                                  kernel_size=m.spline_kernel,
                                  k=m.mesh_knn_k)
@@ -93,7 +97,8 @@ class PoseEngine:
             "output": "poses [batch, 3, 4] (world->cam R|t, metres)",
             "device": str(self.device),
             "exact_knn": True,
-            "refine": None,
+            "refine": refine,
+            "icp_reject_m": self.icp_reject,
         }
         # what the pose fit used on the last batch (see run_inference)
         self.last_fit: dict | None = None
@@ -120,7 +125,8 @@ class PoseEngine:
         """Finalized batch -> poses [B, 3, 4] on the device."""
         with full_f32():
             poses, self.last_fit = run_inference(
-                self.model, fin, self.mesh, self.mesh_feats, self.knn_chunk)
+                self.model, fin, self.mesh, self.mesh_feats, self.knn_chunk,
+                self.refine, self.icp_reject)
         return poses
 
     def run(self, raw: dict) -> np.ndarray:

@@ -1,8 +1,8 @@
 """The PyTorch port runs where JAX is not installed and without the JAX
-package: every module of gdm_tpu_torch (the training slice's included)
-loads with jax, flax, gdm_tpu, cv2, PIL and tabulate blocked, and no
-source file of the port (chip_smoke.py included) imports them: the GPU
-host has none of them."""
+package: every module of gdm_tpu_torch (the training, refinement and
+stacked slices' included) loads with jax, flax, gdm_tpu, cv2, PIL and
+tabulate blocked, and no source file of the port (chip_smoke.py
+included) imports them: the GPU host has none of them."""
 
 import os
 import os.path as osp
@@ -29,7 +29,8 @@ def test_every_module_imports_without_jax():
     assert "gdm_tpu_torch.serve" in mods and len(mods) >= 20
     for m in ("losses.matching", "train.step", "train.checkpoint",
               "train.state", "train.schedules", "data.gt_gen",
-              "ops.visibility", "utils.logging"):
+              "ops.visibility", "utils.logging", "ops.prng", "ops.ransac",
+              "ops.meanshift", "eval.multimodel"):
         assert f"gdm_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "for name in ('jax', 'flax', 'gdm_tpu', 'cv2', 'PIL', "

@@ -90,6 +90,25 @@ def test_mesh_graph_bit_equal_at_lmo_size():
                                       err_msg=field)
 
 
+@pytest.mark.parametrize("k", [1, 4, 7, 27, 700])
+def test_knn_np_equals_a_stable_sort_under_ties(k):
+    """knn_np selects by partition; on an integer grid with duplicated
+    points (distances tied at every rank, 612 points) its indices equal
+    the first k of a stable argsort of each distance row, and k > n
+    repeats the last neighbour."""
+    from gdm_tpu_torch.models.spline_mesh import knn_np
+
+    g = np.stack(np.meshgrid(*[np.arange(8)] * 3), -1).reshape(-1, 3)
+    g = np.concatenate([g, g[:100]]).astype(np.float32)
+    q = np.random.RandomState(k).randint(0, 8, (50, 3)).astype(np.float32)
+    for query in (None, q):
+        qq = g if query is None else query
+        d2 = ((qq[:, None] - g[None]) ** 2).sum(-1)
+        ref = np.argsort(d2, axis=1, kind="stable")[:, :k]
+        ref = np.concatenate([ref] + [ref[:, -1:]] * (k - ref.shape[1]), 1)
+        np.testing.assert_array_equal(knn_np(g, k, query=query), ref)
+
+
 @pytest.mark.parametrize("n_in,n_out", [(1, 8), (8, 16), (32, 32), (6, 32),
                                         (13, 4)])
 def test_resize_and_pool_matrices(n_in, n_out):
