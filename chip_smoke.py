@@ -42,7 +42,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    on the card against the CPU on a well-posed problem (posed mesh
    points, 2 mm noise, 30% outliers, b=128 x 4096): equal RANSAC
    hypotheses, poses within REFINE_CARD_TOL, each op's time at b=128.
-6. Stacked: a synthetic tree of the 8 LM-O objects x 16 ``test`` frames,
+6. VSD: (a) ``cli eval --vsd`` at b=128 on the eval phase's tree (its
+   object's models_eval PLY: the outward-wound convex hull of the fps
+   points), then ``cli score --vsd`` of its CSV: the similarity kernel
+   launched once per batch plus the warm-up, the gather renderer
+   launched, the vsd / ar_vsd / bop19_ar rows in the table, the same
+   VSD errors (within 1e-6: t goes through mm) from both.  (b) bench.py's
+   hard VSD workload at 32 frames: the 20,480-face trefoil, cluttered
+   480x640 test depths whose GT is rendered by the scatter kernel (held
+   against its plain version), through ``vsd_err_batch`` in pipelined
+   chunks of at most 16 (one per window and z bucket): ms/frame of two
+   runs and peak memory, the
+   gather kernel's first chunk held against its plain version bit for
+   bit, the scatter renderer's errors and first-chunk depths equal to
+   the gather's, the card's errors equal to the CPU's on 2 frames; each
+   kernel's and plain version's time at that chunk beside its bound
+   (18 flops per real candidate-pixel test over the f32 FMA peak, or
+   the bytes at 3.35 TB/s).
+7. Stacked: a synthetic tree of the 8 LM-O objects x 16 ``test`` frames,
    a seeded random checkpoint each, through ``cli infer --stacked``
    (by_class, group 4), ``--stacked-schedule vmap``, ``--stacked
    --refine icp`` and the per-object ``cli infer``: the same CSV rows,
@@ -54,7 +71,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    argmax, Kabsch weights equal, correspondences equal beyond near-ties,
    poses within STACKED_POSE_TOL where the weighted correspondences
    agree); frames/s and peak memory of each run.
-7. Train: a synthetic LM-O tree (object 1, 240 JPEG ``train_pbr`` frames
+8. Train: a synthetic LM-O tree (object 1, 240 JPEG ``train_pbr`` frames
    and 48 ``test`` frames) goes through ``gdm_tpu_torch.cli train`` at the
    LM-O widths and ``train_batch_size`` 24: two epochs validating each
    (the similarity kernel must launch), then ``--epochs 3 --resume``
@@ -697,6 +714,360 @@ def refine_phase(sim, workdir, base_timing):
     launches = refine_eval_runs(sim, workdir, base_timing)
     times = refine_parity()
     return launches, times
+
+
+VSD_FRAMES, VSD_GROUP = 32, 16   # workload (b): chunks that pipeline
+VSD_CPU_FRAMES = 2               # card-vs-CPU frames of workload (b)
+VSD_CLI_TOL = 1e-6   # |eval --vsd - score --vsd|: t goes through mm
+FLOPS_PER_TEST = 18  # f32 flops of one (candidate, pixel) edge test
+
+
+class FirstCall:
+    """While active, eval/vsd's renderer ``name`` is wrapped: the inputs
+    and the output of its first call are kept (to hold the kernel
+    against its plain version on exactly those tensors afterwards)."""
+
+    def __init__(self, name):
+        self.name, self.args, self.out = name, None, None
+
+    def __enter__(self):
+        from gdm_tpu_torch.eval import vsd
+
+        self.orig = orig = getattr(vsd, self.name)
+
+        def call(*args, **kw):
+            out = orig(*args, **kw)
+            if self.args is None:
+                self.args, self.out = (args, kw), out.clone()
+            return out
+
+        setattr(vsd, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        from gdm_tpu_torch.eval import vsd
+
+        setattr(vsd, self.name, self.orig)
+
+
+def render_plain(name, args, kw):
+    """The plain version of renderer ``name`` on the recorded batch
+    (per render, as the CPU path runs it), on the same card tensors."""
+    from gdm_tpu_torch.ops import render_depth as rd
+
+    verts, table, K, origin, window, tile = args
+    if name == "render_depth_window_gather":
+        st = kw.get("slot_tile")
+        return torch.stack([rd.render_depth_window_gather_reference(
+            verts[i], table[i], K, origin[i], window, tile,
+            kw.get("cand_chunk", 256), None if st is None else st[i])
+            for i in range(verts.shape[0])])
+    return torch.stack([rd.render_depth_window_reference(
+        verts[i], table[i], K, origin[i], window, tile,
+        kw.get("face_chunk", 1024)) for i in range(verts.shape[0])])
+
+
+def render_bound(name, args, kw, peak):
+    """Least time of a recorded renderer call: FLOPS_PER_TEST flops per
+    real (candidate, pixel) test over the f32 FMA peak, or its inputs
+    read once and its depth written once at 3.35 TB/s, whichever is
+    larger.  Real candidates are non-zero triples (in rows of a real
+    tile, for the slot layout)."""
+    verts, table, _, origin, window, tile = args
+    real = (table != 0).any(-1)
+    st = kw.get("slot_tile")
+    n_bytes = (verts.numel() + table.numel() + origin.numel() + 9) * 4 \
+        + verts.shape[0] * window[0] * window[1] * 4
+    if st is not None:
+        g = (window[0] // tile) * (window[1] // tile)
+        real = real & (st < g)[..., None]
+        n_bytes += st.numel() * 4
+    tests = int(real.sum()) * tile * tile
+    ops_ms = FLOPS_PER_TEST * tests / peak * 1e3
+    bytes_ms = n_bytes / 3.35e12 * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return max(ops_ms, bytes_ms), by, tests
+
+
+def hold_renderer(tag, rec, peak, reps=5):
+    """The kernel's recorded output against the plain version on the
+    same card tensors (bit-equal), then both timed on them."""
+    from gdm_tpu_torch.ops import render_depth as rd
+
+    (args, kw), name = rec.args, rec.name
+    fn = getattr(rd, name)
+    plain = render_plain(name, args, kw)
+    torch.cuda.synchronize()
+    n_diff = int((plain != rec.out).sum())
+    covered = int((plain > 0).sum())
+    if n_diff or covered == 0:
+        fail(f"{tag}: kernel and plain version differ on {n_diff} pixels "
+             f"({covered} covered)")
+    err = float((plain - rec.out).abs().max())
+    ms = median_ms(lambda: fn(*args, **kw), reps=reps, warmup=1)
+    plain_ms = median_ms(lambda: render_plain(name, args, kw), reps=reps,
+                         warmup=1)
+    bms, by, tests = render_bound(name, args, kw, peak)
+    verts, table = args[0], args[1]
+    shape = [list(verts.shape), list(table.shape), list(args[4]), args[5]]
+    log(f"  {tag}: kernel == plain on all {plain.numel()} pixels of "
+        f"{verts.shape[0]} renders ({covered} covered); median over {reps}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+        f"({by}; {tests} tests x {FLOPS_PER_TEST} flops); verts, table, "
+        f"window, tile {shape}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "shape": shape,
+            "tests": tests}
+
+
+def write_eval_mesh(root, obj_id=1):
+    """models_eval/obj_*.ply of the eval tree: the convex hull of the
+    object's fps points (mm), wound outward as BOP meshes are."""
+    from scipy.spatial import ConvexHull
+
+    from gdm_tpu_torch.data.ply import write_ply
+
+    pts = np.load(osp.join(root, "kps", f"obj_{obj_id:06d}_fps.npy"))[:, :3]
+    hull = ConvexHull(pts)
+    faces = hull.simplices.copy()
+    tri = pts[faces]
+    nrm = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    flip = np.einsum("ij,ij->i", nrm, hull.equations[:, :3]) < 0
+    faces[flip] = faces[flip][:, [0, 2, 1]]
+    os.makedirs(osp.join(root, "models_eval"), exist_ok=True)
+    write_ply(osp.join(root, "models_eval", f"obj_{obj_id:06d}.ply"), pts,
+              faces=faces)
+    return len(faces)
+
+
+def reset_counts(sim, rd):
+    sim.cosine_argmax.launches = 0
+    rd.render_depth_window_gather.launches = 0
+    rd.render_depth_window.launches = 0
+
+
+def vsd_cli_runs(sim, workdir, eval_timing):
+    """Workload (a): ``cli eval --vsd`` then ``cli score --vsd`` of its CSV
+    on the eval phase's tree at b=128.  Returns the launches of both runs
+    by kernel."""
+    from gdm_tpu_torch import cli
+    from gdm_tpu_torch.ops import render_depth as rd
+
+    root, ckpt = osp.join(workdir, "lmo"), osp.join(workdir, "ckpt")
+    out = osp.join(workdir, "out_vsd")
+    n_faces = write_eval_mesh(root)
+    common = ["--dataset", "lmo", "--data-root", root, "--cls-id", "1"]
+    reset_counts(sim, rd)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = cli.main(["eval", *common, "--torch-checkpoint", ckpt,
+                    "--exact-knn", "--num-workers", "8", "--vsd",
+                    "--output-dir", out])
+    wall = time.perf_counter() - t0
+    launches = {"cosine_argmax": sim.cosine_argmax.launches,
+                "render_depth_gather": rd.render_depth_window_gather.launches,
+                "render_depth_scatter": rd.render_depth_window.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches["cosine_argmax"] != len(res["timing"]) + 1:
+        fail(f"eval --vsd: cosine_argmax launched "
+             f"{launches['cosine_argmax']} times for {len(res['timing'])} "
+             "batches + the warm-up")
+    if launches["render_depth_gather"] == 0 or launches[
+            "render_depth_scatter"]:
+        fail(f"eval --vsd: renderer launches {launches}")
+    errs = np.asarray(res["errors"]["ape"]["vsd"])
+    if errs.shape != (EVAL_FRAMES, 10) or not np.isfinite(errs).all() \
+            or errs.min() < 0 or errs.max() > 1:
+        fail(f"eval --vsd: VSD errors of shape {errs.shape}, range "
+             f"[{errs.min()}, {errs.max()}]")
+    for row in ("vsd", "ar_vsd", "bop19_ar"):
+        if not any(line.split()[:1] == [row]
+                   for line in res["table"].splitlines()):
+            fail(f"eval --vsd: no {row} row in the table")
+    ar = res["bop19_ar"]["ape"]
+    log(f"  eval --vsd ({n_faces}-face hull): {EVAL_FRAMES} frames in "
+        f"{wall:.2f} s end to end (plain eval's device ms per batch: "
+        + ", ".join(f"{b['device_ms']:.2f}" for b in eval_timing)
+        + f"); gather launches {launches['render_depth_gather']}, "
+        f"similarity launches {launches['cosine_argmax']}; peak device "
+        f"memory {peak:.2f} GiB; ar_vsd {ar['ar_vsd']:.4f}, bop19_ar "
+        f"{ar['bop19_ar']:.4f}, mean VSD error {errs.mean():.4f}")
+
+    rd.render_depth_window_gather.launches = 0
+    t0 = time.perf_counter()
+    scored = cli.main(["score", *common, "--vsd", "--csv",
+                       osp.join(out, "gt_lmo-test.csv")])
+    wall_s = time.perf_counter() - t0
+    n_score = rd.render_depth_window_gather.launches
+    launches["render_depth_gather"] += n_score
+    d = float(np.abs(np.asarray(scored["errors"]["ape"]["vsd"])
+                     - errs).max())
+    if d > VSD_CLI_TOL or n_score == 0 or \
+            scored["recalls"]["ape"]["vsd"] != res["recalls"]["ape"]["vsd"]:
+        fail(f"score --vsd: VSD errors differ from eval --vsd by {d} "
+             f"(tolerance {VSD_CLI_TOL}), gather launches {n_score}")
+    log(f"  score --vsd of the eval CSV: {EVAL_FRAMES} frames in "
+        f"{wall_s:.2f} s ({wall_s * 1e3 / EVAL_FRAMES:.2f} ms/frame, host "
+        f"metrics included); VSD errors within {d:.3g} of eval --vsd, "
+        f"recalls equal; gather launches {n_score}")
+    return launches
+
+
+def hard_vsd_workload(n_frames=VSD_FRAMES, seed=4):
+    """Workload (b), bench.py's measure_vsd_hard at 32 frames: the
+    20,480-face trefoil at z = 0.55 m, cluttered 480x640 test depths (the
+    GT render, composited over a background plane, an occluder strip and
+    5% holes), GT rendered on the card by the scatter kernel in one
+    launch.  Returns (poses, depths, K, verts, faces, diameter, gt
+    renders, their inputs)."""
+    from gdm_tpu_torch.data.synthetic import make_trefoil_mesh
+    from gdm_tpu_torch.ops import render_depth as rd
+
+    verts, faces = make_trefoil_mesh()
+    diameter = float(np.linalg.norm(verts.max(0) - verts.min(0)))
+    K = np.array([[572.4, 0, 325.3], [0, 573.6, 242.0], [0, 0, 1]],
+                 np.float32)
+    rng = np.random.RandomState(seed)
+    v, f = rd.subdivide_max_edge(verts, faces, 0.01)
+    poses, cams, strips = [], [], []
+    for _ in range(n_frames):
+        q, _ = np.linalg.qr(rng.randn(3, 3))
+        Rg = (q * np.sign(np.linalg.det(q))).astype(np.float32)
+        tg = np.array([rng.uniform(-.04, .04), rng.uniform(-.04, .04),
+                       0.55], np.float32)
+        cams.append((v @ Rg.T + tg).astype(np.float32))
+        strips.append(int(rng.uniform(200, 380)))
+        dR, _ = np.linalg.qr(np.eye(3) + 0.05 * rng.randn(3, 3))
+        Re = (dR * np.sign(np.linalg.det(dR))).astype(np.float32) @ Rg
+        te = tg + rng.randn(3).astype(np.float32) * 0.005
+        poses.append((Re, te, Rg, tg))
+    gt_args = (torch.from_numpy(np.stack(cams)).cuda(),
+               torch.from_numpy(np.ascontiguousarray(
+                   np.broadcast_to(f, (n_frames,) + f.shape))).cuda(),
+               torch.from_numpy(K).cuda(),
+               torch.zeros(n_frames, 2, device="cuda"), (480, 640), 16)
+    gt = rd.render_depth_window(*gt_args)
+    depths = []
+    for d, x0 in zip(gt.cpu().numpy(), strips):
+        bg = np.full_like(d, 0.55 + 0.25)
+        occ = np.full_like(d, 0.55 - 0.12)
+        strip = np.zeros_like(d, bool)
+        strip[:, x0:x0 + 60] = True
+        out = np.where(d > 0, d, bg)
+        out = np.where(strip, np.minimum(out, occ), out)
+        out[rng.rand(*d.shape) < 0.05] = 0.0
+        depths.append(out.astype(np.float32))
+    return poses, depths, K, verts, faces, diameter, gt, gt_args
+
+
+def vsd_chunks(poses, depths, K, verts):
+    """{(window side, z bucket): chunks}: vsd_err_batch's device batches,
+    one renderer launch each."""
+    from gdm_tpu_torch.eval.vsd import _prep_job
+
+    sizes = {}
+    for p, d in zip(poses, depths):
+        j = _prep_job(*p, d, K, verts, 32)
+        sizes[(j["side"], j["zb"])] = sizes.get((j["side"], j["zb"]), 0) + 1
+    return {k: -(-n // VSD_GROUP) for k, n in sizes.items()}
+
+
+def vsd_batch_runs(peak_flops):
+    """Workload (b) through vsd_err_batch (gather, then scatter), each
+    renderer held against its plain version on its first chunk and the
+    GT render, the card against the CPU on VSD_CPU_FRAMES frames.
+    Returns (launches by kernel, per-kernel timing dicts)."""
+    from gdm_tpu_torch.eval.vsd import vsd_err_batch
+    from gdm_tpu_torch.ops import render_depth as rd
+
+    t0 = time.perf_counter()
+    rd.render_depth_window.launches = 0
+    poses, depths, K, verts, faces, diam, gt, gt_args = hard_vsd_workload()
+    gt_launches = rd.render_depth_window.launches
+    log(f"  workload (b): {len(faces)}-face trefoil, {VSD_FRAMES} frames, "
+        f"GT rendered by the scatter kernel ({gt_launches} launch) and "
+        f"cluttered in {time.perf_counter() - t0:.2f} s")
+    gt_ref = torch.stack([rd.render_depth_window_reference(
+        gt_args[0][i], gt_args[1][i], gt_args[2], gt_args[3][i],
+        gt_args[4], gt_args[5]) for i in range(2)])
+    if not torch.equal(gt_ref, gt[:2]) or float(gt[:2].max()) == 0:
+        fail("GT render: scatter kernel differs from its plain version")
+    args = (poses, depths, K, verts, faces, diam)
+    kw = dict(group_cap=VSD_GROUP, device="cuda")
+    vsd_err_batch(*args, **kw)                         # warm-up
+    torch.cuda.synchronize()
+    walls = []
+    for rep in range(2):
+        rd.render_depth_window_gather.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        with FirstCall("render_depth_window_gather") as rec_g:
+            t0 = time.perf_counter()
+            errs = vsd_err_batch(*args, **kw)
+            walls.append(time.perf_counter() - t0)
+        if rep == 0:
+            rec = rec_g
+    n_gather = rd.render_depth_window_gather.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    chunks = vsd_chunks(poses, depths, K, verts)
+    if n_gather != sum(chunks.values()):
+        fail(f"vsd_err_batch: {n_gather} gather launches for the chunks "
+             f"{chunks}")
+    if not np.isfinite(errs).all() or errs.min() < 0 or errs.max() > 1:
+        fail("vsd_err_batch: VSD errors out of [0, 1]")
+    log(f"  vsd_err_batch (gather, group_cap {VSD_GROUP}, pipeline depth "
+        f"2): " + ", ".join(f"{w * 1e3 / VSD_FRAMES:.3f}" for w in walls)
+        + f" ms/frame (two runs after a warm-up); gather launches "
+        f"{n_gather} per run, one per chunk of (window, z bucket): "
+        f"{chunks}; peak device memory {peak:.2f} GiB; mean error "
+        f"{errs.mean():.4f}")
+
+    rd.render_depth_window.launches = 0
+    with FirstCall("render_depth_window") as rec_s:
+        t0 = time.perf_counter()
+        errs_s = vsd_err_batch(*args, renderer="scatter", **kw)
+        wall_s = time.perf_counter() - t0
+    n_scatter = rd.render_depth_window.launches
+    if n_scatter != n_gather or \
+            not np.array_equal(errs_s, errs):
+        fail(f"renderer='scatter': {n_scatter} launches, errors equal to "
+             f"the gather's: {np.array_equal(errs_s, errs)}")
+    if not torch.equal(rec_s.out, rec.out):
+        fail("first chunk: scatter and gather depth images differ")
+    log(f"  vsd_err_batch (scatter): {wall_s * 1e3 / VSD_FRAMES:.3f} "
+        f"ms/frame; errors equal to the gather's; first chunk's "
+        f"{rec.out.shape[0]} depth images equal bit for bit; scatter "
+        f"launches {n_scatter}")
+
+    t0 = time.perf_counter()
+    n = VSD_CPU_FRAMES
+    errs_cpu = vsd_err_batch(poses[:n], depths[:n], K, verts, faces, diam,
+                             device="cpu")
+    if not np.array_equal(errs_cpu, errs[:n]):
+        fail(f"card vs CPU: VSD errors differ by "
+             f"{np.abs(errs_cpu - errs[:n]).max()}")
+    log(f"  card vs CPU on {n} frames: VSD errors equal (step cost), CPU "
+        f"{time.perf_counter() - t0:.2f} s")
+    timing = {"render_depth_gather": hold_renderer(
+                  "gather kernel, first chunk of (b)", rec, peak_flops),
+              "render_depth_scatter": hold_renderer(
+                  "scatter kernel, first chunk of (b)", rec_s, peak_flops)}
+    for k, v in timing.items():
+        v["ms_per_frame"] = [w * 1e3 / VSD_FRAMES for w in walls] \
+            if k == "render_depth_gather" else [wall_s * 1e3 / VSD_FRAMES]
+        v["peak_gib"] = peak
+    return ({"render_depth_gather": n_gather,
+             "render_depth_scatter": n_scatter + gt_launches}, timing)
+
+
+def vsd_phase(sim, workdir, eval_timing):
+    """Workload (a) on the eval tree, then workload (b); launches by
+    kernel summed over the main-path runs, and the renderers' timing."""
+    launches = vsd_cli_runs(sim, workdir, eval_timing)
+    peak = fma_peak_flops()
+    b_launches, timing = vsd_batch_runs(peak)
+    for k, v in b_launches.items():
+        launches[k] += v
+    return launches, timing
 
 
 def write_stacked_tree(root, ckpt):
@@ -1347,13 +1718,15 @@ def main() -> int:
     from gdm_tpu_torch.ops import similarity as sim
 
     t0 = time.perf_counter()
-    secs = _build.build_all(["similarity", "png_unfilter", "radius_nn",
-                             "jpeg"])
+    secs = _build.build_all(["similarity", "render_depth", "png_unfilter",
+                             "radius_nn", "jpeg"])
     log(f"builds, all at once, in {time.perf_counter() - t0:.2f} s: "
         + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
-    for line in _build.build_logs.get("similarity", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name in ("similarity", "render_depth"):
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or \
+                    "Compiling entry" in line:
+                log(f"  ptxas ({name}): {line.strip()}")
 
     t_phase = [time.perf_counter()]
 
@@ -1372,6 +1745,8 @@ def main() -> int:
         launches_eval, eval_timing = eval_phase(sim, workdir)
         phase("refine")
         launches_refine, _ = refine_phase(sim, workdir, eval_timing)
+        phase("vsd")
+        launches_vsd, vsd_timing = vsd_phase(sim, workdir, eval_timing)
     phase("stacked")
     with tempfile.TemporaryDirectory() as workdir:
         launches_stacked, _ = stacked_phase(sim, workdir)
@@ -1389,12 +1764,14 @@ def main() -> int:
         "source": "gdm_tpu_torch/csrc/similarity.cu",
         "replaces": "gdm_tpu/ops/pallas/similarity.py:89",
         "launches": (launches_eval + launches_serve + launches_train
-                     + launches_refine + launches_stacked),
+                     + launches_refine + launches_stacked
+                     + launches_vsd["cosine_argmax"]),
         "launches_eval": launches_eval,
         "launches_serve": launches_serve,
         "launches_train": launches_train,
         "launches_refine": launches_refine,
         "launches_stacked": launches_stacked,
+        "launches_vsd": launches_vsd["cosine_argmax"],
         "max_abs_err": err,
         "ms": at["eval"]["ms"],
         "plain_ms": at["eval"]["plain_ms"],
@@ -1404,7 +1781,16 @@ def main() -> int:
         "shape": list(EVAL_SHAPE),
         "serve": dict(at["serve"], shape=list(SERVE_SHAPE)),
         "train_val": dict(at["train_val"], shape=list(TRAIN_VAL_SHAPE)),
-    }]}))
+    }] + [dict({
+        "name": name,
+        "route": "cuda",
+        "source": "gdm_tpu_torch/csrc/render_depth.cu",
+        "replaces": replaces,
+        "launches": launches_vsd[name],
+        "library_ms": None,
+    }, **vsd_timing[name]) for name, replaces in (
+        ("render_depth_gather", "gdm_tpu/ops/render_depth.py:347"),
+        ("render_depth_scatter", "gdm_tpu/ops/render_depth.py:96"))]}))
     log(smi.splitlines()[0])
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,13 +6,13 @@ and offline scoring of single-object GeoMatch on a BOP dataset.
         [--eval-every 5]
     python -m gdm_tpu_torch.cli eval --dataset lmo --data-root DIR \\
         --torch-checkpoint CKPT --exact-knn [--cls-id 1] \\
-        [--refine {ransac,icp,meanshift}] [--icp-reject M]
+        [--refine {ransac,icp,meanshift}] [--icp-reject M] [--vsd]
     python -m gdm_tpu_torch.cli infer --dataset lmo --data-root DIR \\
         --torch-checkpoint CKPT --exact-knn --output results.csv \\
         [--refine ...] [--stacked [--stacked-schedule by_class|vmap] \\
         [--stacked-group 4]]
     python -m gdm_tpu_torch.cli score --dataset lmo --data-root DIR \\
-        --csv results.csv
+        --csv results.csv [--vsd]
 
 Counterpart of gdm_tpu/cli.py's ``train``, ``eval``, ``infer``
 (per-object loop) and ``score``, with its flags wherever they apply.
@@ -29,6 +29,10 @@ more as a warm-up, and each frame's ``time`` is the batch's device time
 ``--device cpu`` asks for the CPU; without CUDA, ``--device cuda``
 raises.
 
+``--vsd`` adds the BOP VSD errors, their recall row and AR_VSD with the
+combined BOP19 AR, for every object with a ``models_eval`` PLY that has
+faces; the renders run on ``--device`` (eval/vsd.py).
+
 ``--refine`` refines every fitted pose (eval/pose_fit.apply_refine); the
 ICP gate is ``--icp-reject`` metres, or else ``data.nn_dist_th`` times
 the object's diameter.  ``infer --stacked`` interleaves the objects'
@@ -37,7 +41,7 @@ row to its object's model (eval/multimodel.MultiObjectEngine) with that
 object's ICP gate.
 
 The KNN pyramid is exact: it is the port's only mode.  What the JAX CLI
-offers and the port does not yet (``--vsd``, ``--save-viz``,
+offers and the port does not yet (``--save-viz``,
 ``--model-shards``, and for ``train`` also ``--pretrained-backbone``,
 ``--multihost`` and ``--devices`` > 1) raises, naming the ROADMAP queue 1
 item that brings it.
@@ -59,7 +63,6 @@ import numpy as np
 KNN_BLOCK_ELEMS = 1 << 30
 
 _NOT_PORTED = {
-    "vsd": "VSD (ROADMAP queue 1 item 6)",
     "model_shards": "mesh-column sharding (ROADMAP queue 1 item 10)",
     "save_viz": "pose overlays (ROADMAP queue 1 item 11)",
     "pretrained_backbone": "the torchvision ResNet init of the CNN branch "
@@ -123,13 +126,16 @@ def knn_chunk_for(requested: int, batch: int, cfg, log) -> int:
     return chunk
 
 
-def _eval_object_metadata(cfg, refd, cls_id, data_root, models_info,
-                          fallback_pts=None):
+def _eval_object_metadata(cfg, refd, cls_id, data_root, want_vsd, log,
+                          models_info, fallback_pts=None):
     """Per-object eval metadata shared by evaluate() and score().
 
-    Returns (obj_name, diameter_m, model points [m, 3] m, symmetry
-    rotations or None, full BOP symmetry transforms [(R, t_m)] or None),
-    as gdm_tpu/cli.py's helper of the same name does without VSD."""
+    Returns (obj_name, diameter_m, model points [m, 3] m, (verts_m,
+    faces) for VSD or None, symmetry rotations or None, full BOP symmetry
+    transforms [(R, t_m)] or None), as gdm_tpu/cli.py's helper of the
+    same name does.  The VSD mesh is models_eval/obj_*.ply; without it,
+    or without faces in it, VSD is skipped for the object with a
+    warning."""
     from gdm_tpu_torch.data.ply import find_kps_mesh, load_ply
     from gdm_tpu_torch.refdata._base import (
         all_symmetry_rotations,
@@ -139,12 +145,24 @@ def _eval_object_metadata(cfg, refd, cls_id, data_root, models_info,
     obj_name = refd.id2obj[cls_id]
     diameter = refd.diameters_mm_by_id[cls_id] / 1000.0
     eval_ply = osp.join(data_root, "models_eval", f"obj_{cls_id:06d}.ply")
+    vsd_mesh = None
     if osp.exists(eval_ply):
-        pts = load_ply(eval_ply)["pts"] / 1000.0
+        ply = load_ply(eval_ply)
+        pts = ply["pts"] / 1000.0
+        if want_vsd:
+            if "faces" in ply:
+                vsd_mesh = (pts, ply["faces"])
+            else:
+                log.warning("--vsd: %s has no faces — skipping VSD "
+                            "for %s", eval_ply, obj_name)
     else:
         pts = (fallback_pts if fallback_pts is not None else
                find_kps_mesh(data_root, cls_id,
                              cfg.data.model_pt_num)[:, :3])
+        if want_vsd:
+            log.warning("--vsd: no faces for %s (missing %s) — "
+                        "skipping VSD for this object", obj_name,
+                        eval_ply)
     sym = None
     sym_tf = None
     if str(cls_id) in models_info:
@@ -154,7 +172,7 @@ def _eval_object_metadata(cfg, refd, cls_id, data_root, models_info,
         # (identity-only when the model has none), translations -> metres
         sym_tf = [(R, t / 1000.0) for R, t in
                   all_symmetry_transforms(models_info[str(cls_id)])]
-    return obj_name, diameter, pts, sym, sym_tf
+    return obj_name, diameter, pts, vsd_mesh, sym, sym_tf
 
 
 def _load_targets(path):
@@ -285,16 +303,20 @@ def evaluate(args):
     models_info = _models_info(refd, args.data_root)
 
     diameters, models_pts, sym_rots, sym_tfs = {}, {}, {}, {}
+    vsd_meshes = {}
     evaluator = None
     gts = {}
     timing = []
     for cls_id in cls_ids:
         mesh_fps = _object_mesh(cfg, cls_id, args.data_root)
-        obj_name, diameter, pts, sym, sym_tf = _eval_object_metadata(
-            cfg, refd, cls_id, args.data_root, models_info,
-            fallback_pts=mesh_fps[:, :3])
+        obj_name, diameter, pts, vsd_mesh, sym, sym_tf = \
+            _eval_object_metadata(cfg, refd, cls_id, args.data_root,
+                                  args.vsd, log, models_info,
+                                  fallback_pts=mesh_fps[:, :3])
         diameters[obj_name] = diameter
         models_pts[obj_name] = pts
+        if vsd_mesh is not None:
+            vsd_meshes[obj_name] = vsd_mesh
         if sym is not None:
             sym_rots[obj_name] = sym
         if sym_tf is not None:
@@ -315,8 +337,9 @@ def evaluate(args):
                 args.dataset, [refd.id2obj[c] for c in cls_ids],
                 diameters, models_pts, sym_objs=cfg.data.sym_objs,
                 sym_rots=sym_rots, output_dir=args.output_dir,
-                obj2id=refd.obj2id, sym_transforms=sym_tfs,
-                im_w=cfg.data.img_hw[1])
+                obj2id=refd.obj2id, vsd_meshes=vsd_meshes,
+                sym_transforms=sym_tfs, im_w=cfg.data.img_hw[1],
+                device=device)
         engine = _object_engine(cfg, args, obj_name, mesh_fps, device,
                                 batch_size, log,
                                 _icp_gate(args, cfg, diameter))
@@ -450,7 +473,8 @@ def infer(args):
 def score(args):
     """Offline re-scoring of a BOP-format results CSV (the file ``eval``
     or ``infer`` writes: scene_id,im_id,obj_id,score,R,t[mm],time)
-    against the dataset GT, with the metric table ``eval`` prints.
+    against the dataset GT, with the metric table ``eval`` prints
+    (``--vsd`` included: its renders run on ``--device``).
     ``--targets`` restricts GT frames and predictions to a BOP
     test-targets JSON.  Of several rows per (scene, image, object), the
     best-scored one counts."""
@@ -468,11 +492,15 @@ def score(args):
     targets = _load_targets(args.targets) if args.targets else None
 
     diameters, models_pts, sym_rots, sym_tfs, gts = {}, {}, {}, {}, {}
+    vsd_meshes = {}
     for cls_id in cls_ids:
-        obj_name, diameter, pts, sym, sym_tf = _eval_object_metadata(
-            cfg, refd, cls_id, args.data_root, models_info)
+        obj_name, diameter, pts, vsd_mesh, sym, sym_tf = \
+            _eval_object_metadata(cfg, refd, cls_id, args.data_root,
+                                  args.vsd, log, models_info)
         diameters[obj_name] = diameter
         models_pts[obj_name] = pts
+        if vsd_mesh is not None:
+            vsd_meshes[obj_name] = vsd_mesh
         if sym is not None:
             sym_rots[obj_name] = sym
         if sym_tf is not None:
@@ -492,7 +520,9 @@ def score(args):
         args.dataset, list(gts), diameters, models_pts,
         sym_objs=cfg.data.sym_objs, sym_rots=sym_rots,
         output_dir=args.output_dir, obj2id=refd.obj2id,
-        sym_transforms=sym_tfs, im_w=cfg.data.img_hw[1])
+        vsd_meshes=vsd_meshes, sym_transforms=sym_tfs,
+        im_w=cfg.data.img_hw[1],
+        device=_device(args) if vsd_meshes else None)
 
     best = {}
     with open(args.csv) as f:
@@ -861,7 +891,9 @@ def build_parser():
     e = sub.add_parser("eval", help="evaluate on the test set")
     run(e)
     e.add_argument("--output-dir", default="output")
-    e.add_argument("--vsd", action="store_true", help="not ported")
+    e.add_argument("--vsd", action="store_true",
+                   help="BOP VSD errors, recall and AR (models_eval PLY "
+                        "meshes)")
 
     i = sub.add_parser("infer", help="GT-less inference: rgb/depth + "
                                      "detections -> BOP results CSV")
@@ -885,7 +917,12 @@ def build_parser():
     common(s)
     s.add_argument("--csv", required=True)
     s.add_argument("--output-dir", default=None)
-    s.add_argument("--vsd", action="store_true", help="not ported")
+    s.add_argument("--vsd", action="store_true",
+                   help="BOP VSD errors, recall and AR (models_eval PLY "
+                        "meshes)")
+    s.add_argument("--device", default="cuda",
+                   help="torch device of the VSD renders (default cuda; "
+                        "cpu on request)")
     return p
 
 

@@ -8,8 +8,8 @@ and the winding check is a copy of gdm_tpu/eval/vsd._winding_orientation.
 Reference: utils/ply.py (load_ply/read_ply/write_ply) and the
 fps-keypoint mesh loader at datasets/lm/linemod_pbr.py:89-97.  Re-written
 from the PLY spec: supports ascii and binary_little_endian.  The matching
-pipeline consumes vertices; faces feed the VSD depth renderer (not ported
-yet) and the normal estimate.
+pipeline consumes vertices; faces feed the VSD depth renderer
+(eval/vsd.py) and the normal estimate.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """A synthetic BOP dataset on disk, for tests and the smoke run.
 
-Counterpart of gdm_tpu/data/synthetic.py's ``make_object`` and
-``write_synthetic_bop_root``: the same objects, poses, frames, JSONs and
-detections from the same seed.  Frames are written with the port's own
+Counterpart of gdm_tpu/data/synthetic.py's ``make_object``,
+``make_trefoil_mesh`` (the concave VSD rendering workload) and
+``write_synthetic_bop_root``: the same objects, meshes, poses, frames,
+JSONs and detections from the same seed.  Frames are written with the port's own
 encoders (data/imio) where the JAX package calls PIL: PNG, whose files
 differ byte for byte but decode to the same pixels, and, for
 ``train_pbr``, baseline JPEG at quality 95 with 4:2:0 chroma (the same
@@ -31,6 +32,74 @@ def make_object(n_pts: int, rng: np.random.RandomState,
     nrm = dirs
     return np.concatenate(
         [pts * 1000.0, rgb, nrm], axis=1).astype(np.float32)
+
+
+def make_trefoil_mesh(n_u: int = 160, n_v: int = 64, scale: float = 0.02,
+                      tube_r: float = 0.011):
+    """Concave, closed, consistently wound triangle mesh: a trefoil
+    torus-knot tube.
+
+    A procedurally generated "hard" rendering workload (2*n_u*n_v faces,
+    deep self-occlusion from the knot crossings, strongly concave) that
+    stands in for real BOP meshes, which are concave with 10k+ faces —
+    unlike a convex hull.  No reference counterpart (the reference
+    renders via the external bop_renderer C++ library,
+    lib/pysixd/renderer_cpp.py).
+
+    Returns (verts [n_u*n_v, 3] float32 metres, faces [2*n_u*n_v, 3]
+    int32), wound outward (positive signed volume) so eval/vsd's
+    winding check enables exact backface culling.
+
+    The tube frame is parallel-transported along the knot and the
+    residual holonomy angle is distributed linearly over u, so the
+    u-seam closes without a twist (all edges stay O(curve_len/n_u) —
+    no oversized seam faces).
+    """
+    t = np.linspace(0, 2 * np.pi, n_u, endpoint=False)
+    C = np.stack([np.sin(t) + 2 * np.sin(2 * t),
+                  np.cos(t) - 2 * np.cos(2 * t),
+                  -np.sin(3 * t)], axis=1) * scale
+    T = np.roll(C, -1, 0) - np.roll(C, 1, 0)
+    T /= np.linalg.norm(T, axis=1, keepdims=True)
+    # parallel transport an initial normal around the curve
+    N = np.zeros_like(C)
+    n0 = np.array([0.0, 0.0, 1.0])
+    for i in range(n_u):
+        n0 = n0 - T[i] * np.dot(n0, T[i])
+        n0 /= np.linalg.norm(n0)
+        N[i] = n0
+    B = np.cross(T, N)
+    # holonomy: transport once more across the seam and measure the
+    # angle to N[0]; untwist by -theta*i/n_u so the seam closes clean
+    n_end = n0 - T[0] * np.dot(n0, T[0])
+    n_end /= np.linalg.norm(n_end)
+    theta = np.arctan2(np.dot(np.cross(N[0], n_end), T[0]),
+                       np.dot(N[0], n_end))
+    a = -(theta * np.arange(n_u) / n_u)[:, None]
+    N, B = (np.cos(a) * N + np.sin(a) * B,
+            -np.sin(a) * N + np.cos(a) * B)
+    phi = np.linspace(0, 2 * np.pi, n_v, endpoint=False)
+    ring = (np.cos(phi)[:, None, None] * N[None] +
+            np.sin(phi)[:, None, None] * B[None])     # [n_v, n_u, 3]
+    verts = (C[None] + tube_r * ring).transpose(1, 0, 2).reshape(-1, 3)
+
+    iu = np.arange(n_u)[:, None]
+    iv = np.arange(n_v)[None, :]
+    v00 = iu * n_v + iv
+    v10 = ((iu + 1) % n_u) * n_v + iv
+    v01 = iu * n_v + (iv + 1) % n_v
+    v11 = ((iu + 1) % n_u) * n_v + (iv + 1) % n_v
+    faces = np.concatenate([
+        np.stack([v00, v10, v11], axis=-1).reshape(-1, 3),
+        np.stack([v00, v11, v01], axis=-1).reshape(-1, 3),
+    ]).astype(np.int32)
+    # orient outward: flip all faces if the signed volume is negative
+    v64 = verts.astype(np.float64)
+    vol6 = np.einsum("ij,ij->i", v64[faces[:, 0]],
+                     np.cross(v64[faces[:, 1]], v64[faces[:, 2]])).sum()
+    if vol6 < 0:
+        faces = faces[:, [0, 2, 1]]
+    return verts.astype(np.float32), faces
 
 
 def write_synthetic_bop_root(root, mesh_fps, n_frames=96,

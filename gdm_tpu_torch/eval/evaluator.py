@@ -6,10 +6,11 @@ thresholds (:321-338,408-427), prints a table (:468-473), dumps a
 BOP-format CSV (:339,369-376,429-431) and errors/recalls pickles.
 
 Counterpart of gdm_tpu/eval/evaluator.py, with the same recalls, errors,
-AUC, BOP19 AR (MSSD, MSPD), CSV and pickles.  The table is a plain
-fixed-width formatter (the GPU host has no tabulate) that prints what
-tabulate's "plain" format prints.  VSD needs the depth renderer
-(ops/render_depth), which is not ported: ``vsd_meshes`` raises.
+AUC, BOP19 AR (MSSD, MSPD, and with ``vsd_meshes`` VSD and the combined
+BOP19 AR), CSV and pickles.  The table is a plain fixed-width formatter
+(the GPU host has no tabulate) that prints what tabulate's "plain" format
+prints.  VSD renders on ``device`` (eval/vsd.py, the card unless the
+caller asks for the CPU); test depth PNGs are read with data/imio.
 
 As in the JAX package, ADD(-S) AUC (VOC style, 0.1m cap) is reported
 directly: it is the headline number the papers quote, which the
@@ -57,6 +58,7 @@ METRIC_NAMES = [
 # mssd normalised by diameter and mspd by image width)
 BOP19_MSSD_THS = tuple(float(t) for t in np.arange(0.05, 0.51, 0.05))
 BOP19_MSPD_THS = tuple(float(t) for t in np.arange(5.0, 50.1, 5.0))
+BOP19_VSD_THS = tuple(float(t) for t in np.arange(0.05, 0.51, 0.05))
 
 
 class Evaluator:
@@ -71,16 +73,19 @@ class Evaluator:
       sym_rots: {obj_name: [K, 3, 3] symmetry rotations or None}.
       output_dir: where table/CSV/pickles are written (None = no files).
       obj2id: {obj_name: BOP object id} for the CSV.
-      vsd_meshes: must be empty (VSD is not ported).
+      vsd_meshes: {obj_name: (verts_m [V, 3], faces [F, 3])} enables
+        BOP VSD for those objects; their gt entries then carry the test
+        depth ('depth' array, or 'depth_file' + 'depth_factor').
       sym_transforms: {obj_name: [(R, t_m)]} BOP symmetry transforms
         for MSSD/MSPD; objects without an entry use the identity.
       im_w: image width for the 640-px MSPD normalisation.
+      device: where VSD renders and scores ('cuda' or 'cpu').
     """
 
     def __init__(self, dataset_name, obj_names, diameters, models_pts,
                  sym_objs=(), sym_rots=None, output_dir=None,
                  obj2id=None, vsd_meshes=None, sym_transforms=None,
-                 im_w=640):
+                 im_w=640, device="cuda"):
         self.dataset_name = dataset_name
         self.obj_names = list(obj_names)
         self.diameters = diameters
@@ -94,16 +99,14 @@ class Evaluator:
         self.sym_rots = sym_rots if sym_rots is not None else {}
         self.output_dir = output_dir
         self.obj2id = obj2id if obj2id is not None else {}
-        if vsd_meshes:
-            raise NotImplementedError(
-                "VSD is not ported: it needs the depth renderer "
-                "(ops/render_depth, ROADMAP queue 1)")
+        self.vsd_meshes = vsd_meshes if vsd_meshes is not None else {}
         # {obj_name: [(R [3,3], t_m [3]), ...]} full BOP symmetry
         # transforms (misc.get_symmetry_transformations, translations in
         # METRES) for MSSD/MSPD; objects without an entry use identity
         self.sym_transforms = (sym_transforms
                                if sym_transforms is not None else {})
         self.im_w = im_w   # MSPD pixel thresholds are defined at 640 px
+        self.device = device
         self.reset()
 
     def reset(self):
@@ -142,6 +145,17 @@ class Evaluator:
             diameter = self.diameters[obj_name]
             pts = self.models_pts[obj_name]
             is_sym = obj_name in self.sym_objs
+            do_vsd = obj_name in self.vsd_meshes
+            if do_vsd:
+                from gdm_tpu_torch.eval.vsd import BOP19_TAUS
+
+                rec["vsd"] = []
+                err["vsd"] = []
+                # VSD renders run batched after the frame loop (one device
+                # batch per window/z/K group); slots mark where each
+                # frame's result lands so ordering matches the other
+                # metrics
+                vsd_poses, vsd_depths, vsd_ks, vsd_slots = [], [], [], []
 
             for file_name, gt in obj_gts.items():
                 if file_name not in cur_preds:
@@ -154,7 +168,9 @@ class Evaluator:
                     for m in rec:
                         rec[m].append(0.0)
                     for e in err:
-                        err[e].append(np.inf)
+                        err[e].append(
+                            np.full(len(BOP19_TAUS), np.inf)
+                            if e == "vsd" else np.inf)
                     continue
                 pred = cur_preds[file_name]
                 R_pred, t_pred = pred["R"], pred["t"]
@@ -233,10 +249,32 @@ class Evaluator:
                 rec["proj_5"].append(float(p_error < 5))
                 rec["proj_10"].append(float(p_error < 10))
 
+                if do_vsd:
+                    depth = self._gt_depth(gt)
+                    if depth is not None:
+                        vsd_poses.append((R_pred, t_pred.ravel(),
+                                          R_gt, t_gt.ravel()))
+                        vsd_depths.append(depth)
+                        vsd_ks.append(np.asarray(K, np.float64))
+                        vsd_slots.append(len(err["vsd"]))
+                        err["vsd"].append(None)
+                        rec["vsd"].append(None)
+                    # flush in bounded chunks: full-frame f32 depths are
+                    # ~1.2 MB each, and vsd_err_batch crops each to a small
+                    # window first
+                    if len(vsd_poses) >= self._VSD_FLUSH:
+                        self._flush_vsd(obj_name, diameter, vsd_poses,
+                                        vsd_depths, vsd_ks, vsd_slots,
+                                        err, rec)
+
+            if do_vsd and vsd_poses:
+                self._flush_vsd(obj_name, diameter, vsd_poses,
+                                vsd_depths, vsd_ks, vsd_slots, err, rec)
+
             recalls[obj_name] = rec
             errors[obj_name] = err
             aucs[obj_name] = voc_auc(err["ad"], max_dis=0.1)
-            ars[obj_name] = self._bop19_ar(err, diameter)
+            ars[obj_name] = self._bop19_ar(err, diameter, do_vsd=do_vsd)
 
         table = self._format_table(recalls, errors, aucs, ars)
         if self.output_dir:
@@ -257,12 +295,14 @@ class Evaluator:
                 "bop19_ar": ars, "table": table}
 
     @staticmethod
-    def _bop19_ar(err, diameter):
+    def _bop19_ar(err, diameter, do_vsd):
         """BOP19 average recalls for one object.
 
-        AR_MSSD over thresholds 0.05..0.5 x diameter and AR_MSPD over
-        5..50 px at 640-width normalisation.  Missing-frame sentinels
-        (inf) count as misses at every threshold.
+        AR_MSSD over thresholds 0.05..0.5 x diameter, AR_MSPD over
+        5..50 px at 640-width normalisation, AR_VSD over thresholds
+        0.05..0.5 x the tau grid, and their mean (the BOP19 AR) when VSD
+        is available.  Missing-frame sentinels (inf) count as misses at
+        every threshold.
         """
         out = {}
         mssd = np.asarray(err["mssd"], np.float64) / diameter
@@ -273,14 +313,55 @@ class Evaluator:
         out["ar_mspd"] = float(np.mean(
             [(mspd < th).mean() for th in BOP19_MSPD_THS])) \
             if mspd.size else 0.0
+        if do_vsd and len(err.get("vsd", ())):
+            vsd = np.stack([np.asarray(v, np.float64)
+                            for v in err["vsd"]])       # [n, n_taus]
+            out["ar_vsd"] = float(np.mean(
+                [(vsd < th).mean() for th in BOP19_VSD_THS]))
+            out["bop19_ar"] = float(np.mean(
+                [out["ar_vsd"], out["ar_mssd"], out["ar_mspd"]]))
         return out
+
+    @staticmethod
+    def _gt_depth(gt):
+        """Test depth (metres) for a gt entry, or None if unavailable."""
+        if "depth" in gt:
+            return np.asarray(gt["depth"], np.float32)
+        if "depth_file" in gt:
+            from gdm_tpu_torch.data.imio import imread_u16
+
+            d = imread_u16(gt["depth_file"]).astype(np.float32)
+            return d / float(gt.get("depth_factor", 1000.0))
+        return None
+
+    _VSD_FLUSH = 128    # frames per vsd_err_batch call (~150 MB depths)
+
+    def _flush_vsd(self, obj_name, diameter, vsd_poses, vsd_depths,
+                   vsd_ks, vsd_slots, err, rec):
+        """Render+score the accumulated VSD frames, write their slots,
+        and clear the accumulators (lists are mutated in place)."""
+        from gdm_tpu_torch.eval.vsd import BOP19_CORRECT_TH, vsd_err_batch
+
+        verts, faces_ = self.vsd_meshes[obj_name]
+        ves = vsd_err_batch(vsd_poses, vsd_depths, np.stack(vsd_ks),
+                            verts, faces_, diameter, device=self.device)
+        for slot, ve in zip(vsd_slots, ves):
+            # the full per-tau error vector (the reference's offline eval
+            # stores errors per tau too)
+            err["vsd"][slot] = np.asarray(ve, np.float64)
+            rec["vsd"][slot] = float(np.mean(ve < BOP19_CORRECT_TH[0]))
+        for acc in (vsd_poses, vsd_depths, vsd_ks, vsd_slots):
+            acc.clear()
 
     @staticmethod
     def _format_table(recalls, errors, aucs, ars=None):
         obj_names = sorted(recalls.keys())
         header = ["objects"] + obj_names + [f"Avg({len(obj_names)})"]
         rows = [header]
-        for m in METRIC_NAMES:
+        metric_names = list(METRIC_NAMES)
+        if any("vsd" in recalls[o] for o in obj_names):
+            metric_names.append("vsd")
+        for m in metric_names:
             # same convention as the AR rows: objects that were never
             # evaluated on this metric print '-' and stay out of the
             # average instead of counting as 0.0
@@ -304,7 +385,7 @@ class Evaluator:
         rows.append(["auc_ad"] + [f"{v:.2f}" for v in auc_vals]
                     + [f"{np.mean(auc_vals):.2f}" if auc_vals else "0.00"])
         if ars:
-            for key in ("ar_mssd", "ar_mspd"):
+            for key in ("ar_vsd", "ar_mssd", "ar_mspd", "bop19_ar"):
                 if not any(key in ars.get(o, {}) for o in obj_names):
                     continue
                 vals = [100 * ars[o][key] for o in obj_names

@@ -3,8 +3,8 @@
 Reference: lib/pysixd/pose_error.py (add :297, adi :315, re :400, te :425,
 arp_2d :440, mssd :131, mspd :156), utils/pose_utils.py get_closest_rot
 (:430-454), and the VOC-style AUC of utils/basic_utils.py:813-820
-(cal_auc + VOCap).  The VSD error lives in gdm_tpu/eval/vsd.py (it needs
-the device renderer, not ported yet).
+(cal_auc + VOCap).  The VSD error, which renders on the device, lives in
+eval/vsd.py.
 
 A copy of gdm_tpu/eval/metrics.py (numpy + scipy; its package imports
 jax); the tests hold every function bit-equal in float64.

@@ -285,9 +285,58 @@ def test_refine_icp_csv_matches_jax(runs):
     assert any(np.abs(rows_t[k][1] - plain[k][1]).max() > 0 for k in keys_t)
 
 
+@pytest.fixture(scope="module")
+def vsd_runs(runs, tmp_path_factory):
+    """Port ``eval --vsd`` (plain and ``--refine icp``) on the CPU, then
+    the JAX CLI's and the port's ``score --vsd`` of each run's CSV: the
+    JAX scorer gives the JAX package's VSD errors of the port's poses."""
+    from gdm_tpu import cli as cli_j
+
+    score = ["score", "--dataset", "lmo", "--data-root", runs["bop_root"],
+             "--vsd"]
+    out = {}
+    for mode, extra in (("plain", []), ("icp", ["--refine", "icp"])):
+        d = str(tmp_path_factory.mktemp(f"out_vsd_{mode}"))
+        res = cli_t.main(["eval", *runs["common"], "--device", "cpu",
+                          "--vsd", *extra, "--output-dir", d])
+        csv = osp.join(d, "gt_lmo-test.csv")
+        out[mode] = {
+            "eval_t": res, "csv": csv,
+            "score_j": cli_j.main([*score, "--csv", csv]),
+            "score_t": cli_t.main([*score, "--device", "cpu", "--csv",
+                                   csv])}
+    return out
+
+
+@pytest.mark.parametrize("mode", ["plain", "icp"])
+def test_vsd_matches_jax_cli(vsd_runs, runs, mode):
+    """``eval --vsd`` (``--refine icp --vsd``): per-frame VSD errors of the
+    4 frames within 1e-6 of the JAX CLI's (its ``score --vsd`` of the
+    port's CSV: t goes through mm and back), the same vsd recalls,
+    ar_vsd and bop19_ar; the port's ``score --vsd`` of the CSV reproduces
+    its eval run."""
+    r = vsd_runs[mode]
+    ev, sj, st = r["eval_t"], r["score_j"], r["score_t"]
+    errs = np.asarray(ev["errors"]["ape"]["vsd"])
+    assert errs.shape == (4, 10) and np.all((errs >= 0) & (errs <= 1))
+    assert "vsd" in ev["table"] and "bop19_ar" in ev["table"]
+    for other in (sj, st):
+        np.testing.assert_allclose(
+            np.asarray(other["errors"]["ape"]["vsd"]), errs, rtol=0,
+            atol=1e-6)
+        assert other["recalls"]["ape"]["vsd"] == ev["recalls"]["ape"]["vsd"]
+        for key in ("ar_vsd", "ar_mssd", "ar_mspd", "bop19_ar"):
+            assert other["bop19_ar"]["ape"][key] == pytest.approx(
+                ev["bop19_ar"]["ape"][key], abs=1e-9), key
+    # the run is the eval run of the same flags without --vsd, plus VSD
+    plain, _ = _read_csv(runs["csv_t" if mode == "plain" else "csv_t_icp"])
+    rows, _ = _read_csv(r["csv"])
+    for k, (R, t) in rows.items():
+        np.testing.assert_array_equal(R, plain[k][0])
+        np.testing.assert_array_equal(t, plain[k][1])
+
+
 @pytest.mark.parametrize("extra,err", [
-    (["--refine", "icp", "--vsd"], NotImplementedError),
-    (["--vsd"], NotImplementedError),
     (["--save-viz", "viz"], NotImplementedError),
     (["--model-shards", "2"], NotImplementedError),
     (["--device", "cuda"], RuntimeError)])

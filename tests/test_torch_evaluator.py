@@ -174,8 +174,35 @@ def test_plain_table_lays_out_like_tabulate():
     assert ev_t.plain_table(rows) == tabulate(rows, tablefmt="plain")
 
 
-def test_vsd_refused():
-    with pytest.raises(NotImplementedError, match="VSD"):
-        ev_t.Evaluator("lmo", ["ape"], {"ape": 0.1}, {"ape": np.zeros((3, 3))},
-                       vsd_meshes={"ape": (np.zeros((3, 3)),
-                                           np.zeros((1, 3), int))})
+def test_vsd_meshes_filled_after_construction():
+    """The Evaluator keeps the caller's vsd_meshes dict (cli fills it
+    after construction) and then gives JAX's per-frame VSD errors (step
+    cost: equal), vsd recalls, ar_vsd, bop19_ar and table; a frame
+    without a prediction gets the inf sentinel."""
+    import test_vsd as J
+
+    verts, faces = J.square_mesh(half=0.1, z=0.0)
+    R, t = np.eye(3), np.array([0.0, 0.0, 2.0])
+    depth = J.render_full((verts + t).astype(np.float32), faces, J.K,
+                          max_edge=0.02)
+    gt = {"R": R, "t": t, "K": J.K, "depth": depth}
+    gts = {"ape": {f"1/{i}": gt for i in range(4)}}
+    res = []
+    for mod, kw in ((ev_j, {}), (ev_t, {"device": "cpu"})):
+        meshes = {}
+        ev = mod.Evaluator("lmo", ["ape"], {"ape": 0.28}, {"ape": verts},
+                           vsd_meshes=meshes, **kw)
+        meshes["ape"] = (verts, faces)
+        assert ev.vsd_meshes is meshes
+        for i, dt in enumerate(([0, 0, 0], [0.004, 0, 0.02], [0.3, 0, 0])):
+            ev.add_prediction("ape", f"1/{i}", R, t + np.asarray(dt))
+        res.append(ev.evaluate(gts))
+    r_j, r_t = res
+    _same(r_t["errors"]["ape"]["vsd"], r_j["errors"]["ape"]["vsd"])
+    assert np.isinf(r_t["errors"]["ape"]["vsd"][3]).all()
+    assert r_t["recalls"]["ape"]["vsd"] == r_j["recalls"]["ape"]["vsd"]
+    assert r_t["bop19_ar"] == r_j["bop19_ar"]
+    assert set(r_t["bop19_ar"]["ape"]) == {"ar_vsd", "ar_mssd", "ar_mspd",
+                                           "bop19_ar"}
+    assert 0 < r_t["bop19_ar"]["ape"]["ar_vsd"] < 1
+    assert r_t["table"] == r_j["table"]

@@ -1,6 +1,6 @@
 """The PyTorch port runs where JAX is not installed and without the JAX
-package: every module of gdm_tpu_torch (the training, refinement and
-stacked slices' included) loads with jax, flax, gdm_tpu, cv2, PIL and
+package: every module of gdm_tpu_torch (the training, refinement, stacked and
+VSD slices' included) loads with jax, flax, gdm_tpu, cv2, PIL and
 tabulate blocked, and no source file of the port (chip_smoke.py
 included) imports them: the GPU host has none of them."""
 
@@ -30,7 +30,8 @@ def test_every_module_imports_without_jax():
     for m in ("losses.matching", "train.step", "train.checkpoint",
               "train.state", "train.schedules", "data.gt_gen",
               "ops.visibility", "utils.logging", "ops.prng", "ops.ransac",
-              "ops.meanshift", "eval.multimodel"):
+              "ops.meanshift", "eval.multimodel", "ops.render_depth",
+              "eval.vsd"):
         assert f"gdm_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "for name in ('jax', 'flax', 'gdm_tpu', 'cv2', 'PIL', "
