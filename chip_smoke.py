@@ -91,6 +91,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
    5; the step split (inputs, forward, backward, optimizer) and
    device-only samples/s, the loader's ms/sample in train mode by stage
    and the train run's peak device memory.
+9. YCB-V: a synthetic YCB-V tree at 480x640 (the 21 objects, 128
+   ``test`` frames: 8 of object 1, 6 of each other; 12 frames of object 1
+   in each of ``train_real`` (PNG, depth in mm), ``train_pbr`` (JPEG) and
+   ``train_synt``; models_info.json with 024_bowl's continuous symmetry)
+   and one seeded random checkpoint for every object, at the YCB-V preset
+   (``fill_depth``, the real/pbr mix): the loader's ms/sample with and
+   without the depth fill (in turns, after an untimed pass) and the fill
+   alone per 256^2 crop;
+   ``finalize_batch(fill_depth=True)`` on the card against the CPU
+   (within 1e-4), the chosen hole pixels taking their normals from the
+   filled depth; ``cli eval --dataset ycbv`` at b=128 on object 1;
+   ``cli infer --stacked`` (by_class, group 4) on one mixed batch of 128
+   over the 21 objects, every row's correspondences held against the
+   plain argmax of its object's mesh features; ``cli train --dataset
+   ycbv`` at b=8 with train_synt added (records of every kind picked,
+   the noise, background paste and fill run, finite losses), then ``cli
+   eval`` of its checkpoint.  Device ms per batch (also without the
+   plain checks' time), frames/s, step times and peak memory of each
+   run.
 
 Output: per-request latency lines, then one JSON line with the kernels,
 the card's name and power limit, and the last line {"ok": true,
@@ -340,11 +359,14 @@ class FitChecks:
     """While active, every batch a PoseEngine fits is held against the
     plain argmax on the same features (check_fit_indices): PoseEngine.infer
     is wrapped for the duration.  Counts the batches checked and the
-    seconds the checks took."""
+    seconds the checks took, and keeps each batch's check milliseconds
+    (after a synchronise) for callers that subtract them from the batch's
+    device time."""
 
     def __init__(self, sim, tag):
         self.sim, self.tag = sim, tag
         self.n, self.seconds = 0, 0.0
+        self.check_ms = []          # per batch, the warm-up's first
 
     def __enter__(self):
         from gdm_tpu_torch.eval import pose_fit
@@ -354,10 +376,13 @@ class FitChecks:
 
         def infer(engine, fin):
             poses = orig(engine, fin)
+            if poses.is_cuda:           # the fit's own time stays out
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             check_fit_indices(engine.last_fit, self.sim, pose_fit,
                               f"{self.tag} batch {self.n}")
-            self.seconds += time.perf_counter() - t0
+            self.check_ms.append((time.perf_counter() - t0) * 1e3)
+            self.seconds += self.check_ms[-1] / 1e3
             self.n += 1
             return poses
 
@@ -618,7 +643,9 @@ def refine_eval_runs(sim, workdir, base_timing):
             fail(f"eval --refine {mode}: a miss sentinel was refined")
         launches += n_launch
         log(f"  eval --refine {mode}: per-batch device ms "
-            + ", ".join(f"{b['device_ms']:.2f}" for b in timing)
+            + ", ".join(f"{b['device_ms']:.2f} ({b['device_ms'] - c:.2f} "
+                        "without the plain check)"
+                        for b, c in zip(timing, fc.check_ms[1:]))
             + f" (refine=None: {base}); peak device memory {peak:.2f} GiB; "
             f"kernel launches {n_launch}, each held against the plain "
             f"argmax; {len(poses)} rows, {n_fit} fitted, every R a "
@@ -1697,6 +1724,344 @@ def train_phase(sim, workdir):
     return launches, {"parity": parity, "fixed": fixed}
 
 
+
+YCBV_TEST = {oid: 8 if oid == 1 else 6 for oid in range(1, 22)}   # 128
+YCBV_TRAIN_FRAMES, YCBV_TRAIN_BATCH, YCBV_SYM = 12, 8, 13   # 024_bowl
+FINALIZE_TOL = 1e-4      # |card - CPU| of finalize_batch(fill_depth=True)
+
+
+class StackedChecks:
+    """While active, every batch a MultiObjectEngine fits is held against
+    the plain argmax, each row against its own object's mesh features
+    (MultiObjectEngine.infer wrapped for the duration)."""
+
+    def __init__(self, sim, tag):
+        self.sim, self.tag = sim, tag
+        self.n, self.seconds = 0, 0.0
+        self.check_ms = []          # per batch, the warm-up's first
+
+    def __enter__(self):
+        from gdm_tpu_torch.eval import pose_fit
+        from gdm_tpu_torch.eval.multimodel import MultiObjectEngine
+        from gdm_tpu_torch.ops.similarity import cosine_argmax_reference
+
+        self.orig = orig = MultiObjectEngine.infer
+
+        def infer(engine, fin):
+            poses = orig(engine, fin)
+            if poses.is_cuda:           # the fit's own time stays out
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit, pos = engine.last_fit, np.asarray(fin["obj_pos"])
+            rows = bad = sure = 0
+            for p in np.unique(pos):
+                r = torch.as_tensor(np.nonzero(pos == p)[0],
+                                    device=fit["idx"].device)
+                mf = pose_fit.l2_normalise(engine.engines[p].mesh_feats)
+                f = pose_fit.l2_normalise(fit["rgbd"][r])
+                f = f.reshape(-1, f.shape[-1])
+                idx_ref, _ = cosine_argmax_reference(f, mf)
+                top2 = torch.topk(f @ mf.T, 2, dim=-1).values
+                ok = top2[:, 0] - top2[:, 1] > GAP
+                bad += int(((fit["idx"][r].reshape(-1) != idx_ref)
+                            & ok).sum())
+                rows, sure = rows + len(ok), sure + int(ok.sum())
+            log(f"  {self.tag} batch {self.n}: {len(np.unique(pos))} "
+                f"objects, {rows} rows, index mismatches {bad} of {sure} "
+                f"rows with top-2 gap > {GAP}")
+            if bad:
+                fail(f"{self.tag}: {bad} index mismatches beyond near-ties")
+            self.check_ms.append((time.perf_counter() - t0) * 1e3)
+            self.seconds += self.check_ms[-1] / 1e3
+            self.n += 1
+            return poses
+
+        MultiObjectEngine.infer = infer
+        return self
+
+    def __exit__(self, *exc):
+        from gdm_tpu_torch.eval.multimodel import MultiObjectEngine
+
+        MultiObjectEngine.infer = self.orig
+
+
+def write_ycbv_tree(root, ckpt):
+    """The 21 YCB-V objects at 480x640 (a mesh of each one's diameter):
+    YCBV_TEST test frames (128: one mixed batch), YCBV_TRAIN_FRAMES frames
+    of object 1 in each of train_real, train_pbr and train_synt,
+    models_info.json with 024_bowl's continuous symmetry, and one seeded
+    random checkpoint linked for every object (the objects' meshes
+    differ; the stacked phase runs distinct weights per object)."""
+    from gdm_tpu_torch import refdata
+    from gdm_tpu_torch.configs import YCBV as cfg
+    from gdm_tpu_torch.data.synthetic import make_object, \
+        write_synthetic_ycbv_root
+
+    refd = refdata.get("ycbv")
+    rng = np.random.RandomState(SEED + 5)
+    meshes = {oid: make_object(cfg.data.model_pt_num, rng,
+                               radius=refd.diameters_mm_by_id[oid] / 2500.0)
+              for oid in cfg.data.obj_ids}
+    write_synthetic_ycbv_root(
+        root, meshes, YCBV_TEST, 1, YCBV_TRAIN_FRAMES, cfg.data.img_hw,
+        seed=SEED + 5, diameters_mm=refd.diameters_mm_by_id,
+        sym_ids=(YCBV_SYM,))
+    os.makedirs(ckpt)
+    blob = osp.join(ckpt, "geomatch.pth.tar")
+    torch.save({"model_state": random_weights(cfg, SEED + 40)}, blob)
+    for oid in cfg.data.obj_ids:
+        d = osp.join(ckpt, refd.id2obj[oid])
+        os.makedirs(d)
+        os.symlink(blob, osp.join(d, "geomatch.pth.tar"))
+
+
+def ycbv_host_costs(cfg, root):
+    """Loader ms/sample over the 128 mixed frames (8 threads) with and
+    without the depth fill, and the fill alone per crop."""
+    import dataclasses
+
+    from gdm_tpu_torch import cli
+    from gdm_tpu_torch.data.augment import fill_depth_fast
+    from gdm_tpu_torch.data.dataset import PoseDataset
+    from gdm_tpu_torch.data.loader import DataLoader
+
+    out = {True: [], False: []}
+    # an untimed pass first (the frames' first reads), then in turns
+    for k, fill in enumerate((False, True, False, True, False)):
+        c = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, fill_depth=fill))
+        mixed = cli.MixedInferDataset([
+            (oid, PoseDataset(c, oid, "infer", data_root=root))
+            for oid in cfg.data.obj_ids])
+        t0 = time.perf_counter()
+        n = sum(b["rgb_u8"].shape[0] for b, _ in DataLoader(
+            mixed, len(mixed), num_workers=8))
+        if k:
+            out[fill].append((time.perf_counter() - t0) * 1e3 / n)
+    crops = [mixed[k] for k in range(32)]
+    t0 = time.perf_counter()
+    for it in crops:
+        fill_depth_fast(it["dpt_u16"].astype(np.float32) / it["dpt_scale"])
+    out["fill"] = (time.perf_counter() - t0) * 1e3 / len(crops)
+    log(f"  loader (infer mode, 8 threads, {n} mixed frames, in turns): "
+        + ", ".join(f"{v:.3f}" for v in out[True]) + " ms/sample with the "
+        "depth fill, " + ", ".join(f"{v:.3f}" for v in out[False])
+        + f" without; the fill alone {out['fill']:.3f} ms per "
+        f"{cfg.data.input_size}^2 crop (1 thread)")
+    return out
+
+
+def ycbv_finalize_check(cfg, root):
+    """finalize_batch(fill_depth=True) of object 1's frames on the card
+    against the CPU, and the normals of the chosen hole pixels (raw depth
+    0, filled depth > 0)."""
+    from gdm_tpu_torch.data.dataset import PoseDataset
+    from gdm_tpu_torch.data.loader import collate
+    from gdm_tpu_torch.data.pipeline import finalize_batch, to_device
+
+    ds = PoseDataset(cfg, 1, "test", data_root=root)
+    raw, _ = collate([ds[i] for i in range(len(ds))])
+    raw = {k: raw[k] for k in ("rgb_u8", "dpt_u16", "dpt_scale",
+                               "dpt_filled", "K_crop", "choose", "det")}
+    dev = to_device(raw, "cuda")
+    got = finalize_batch(dev, True)["cld_rgb_nrm"]
+    want = finalize_batch(to_device(raw, "cpu"), True)["cld_rgb_nrm"]
+    err = float((got.cpu() - want).abs().max())
+    b = np.arange(len(ds))[:, None]
+    hole = raw["dpt_u16"].reshape(len(ds), -1)[b, raw["choose"]] == 0
+    nrm = got[..., 6:9].norm(dim=-1).cpu().numpy()[hole]
+    nrm_raw = finalize_batch(dev, False)["cld_rgb_nrm"][..., 6:9].norm(
+        dim=-1).cpu().numpy()[hole]
+    lit = float((nrm > 0.5).mean()) if hole.any() else 0.0
+    log(f"  finalize_batch(fill_depth=True), {len(ds)} frames: card vs CPU "
+        f"max |d| {err:.3g} (tolerance {FINALIZE_TOL}); {int(hole.sum())} "
+        f"chosen hole pixels (raw depth 0): {lit:.1%} of them get a unit "
+        "normal from the filled depth, none from the raw depth (max |n| "
+        f"{float(nrm_raw.max(initial=0.0)):.3g})")
+    if err > FINALIZE_TOL:
+        fail(f"finalize_batch(fill_depth=True) card vs CPU: {err}")
+    if not hole.any() or lit < 0.5 or nrm_raw.max(initial=0.0) > 1e-6:
+        fail(f"hole pixels: {int(hole.sum())}, normals from the fill on "
+             f"{lit:.1%}, from the raw depth up to {nrm_raw.max()}")
+
+
+def ycbv_train(sim, cfg, workdir, root):
+    """cli train --dataset ycbv at b=8 with train_synt added (mix, noise,
+    real backgrounds and fill all run), then cli eval of its checkpoint.
+    Returns the similarity launches of the eval."""
+    from gdm_tpu_torch import cli
+    from gdm_tpu_torch.data import dataset as ds_mod
+    from gdm_tpu_torch.train import step as step_mod
+
+    calls = {"noise": 0, "paste": 0, "fill": 0}
+    picks, losses = [], []
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    orig = {k: getattr(ds_mod, k) for k in (
+        "rgb_add_noise", "add_real_background", "fill_depth_fast")}
+    orig_pick = ds_mod.PoseDataset._pick_record
+    orig_make = step_mod.make_train_step
+
+    def pick(ds, idx, rng):
+        rec = orig_pick(ds, idx, rng)
+        picks.append(rec.img_type)
+        return rec
+
+    def make(*a, **kw):
+        step = orig_make(*a, **kw)
+
+        def run(*sa, **skw):
+            m = step(*sa, **skw)
+            losses.append(float(m["loss"]))
+            return m
+        return run
+
+    ds_mod.rgb_add_noise = counted("noise", orig["rgb_add_noise"])
+    ds_mod.add_real_background = counted("paste",
+                                         orig["add_real_background"])
+    ds_mod.fill_depth_fast = counted("fill", orig["fill_depth_fast"])
+    ds_mod.PoseDataset._pick_record = pick
+    step_mod.make_train_step = make
+    ckpt_root = osp.join(workdir, "ycbv_train")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = cli.main([
+            "train", "--dataset", "ycbv", "--data-root", root, "--cls-id",
+            "1", "--epochs", "1", "--batch-size", str(YCBV_TRAIN_BATCH),
+            "--ckpt-root", ckpt_root, "--num-workers", "8", "--opt",
+            "data.train_subsets=train_real,train_pbr,train_synt", "--opt",
+            "solver.checkpoint_every_epochs=1"])
+    finally:
+        for k, fn in orig.items():
+            setattr(ds_mod, k, fn)
+        ds_mod.PoseDataset._pick_record = orig_pick
+        step_mod.make_train_step = orig_make
+    wall = time.perf_counter() - t0
+    steps = res["timing"]
+    kinds = {k: picks.count(k) for k in ("real", "synt", "pbr")}
+    log(f"  cli train --dataset ycbv: {len(steps)} steps of "
+        f"{YCBV_TRAIN_BATCH} in {wall:.2f} s end to end; step ms "
+        + ", ".join(f"{r['step_ms']:.2f}" for r in steps)
+        + f"; loader wait ms " + ", ".join(f"{r['wait_ms']:.2f}"
+                                            for r in steps)
+        + f"; losses {[round(x, 4) for x in losses]}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; records "
+        f"picked {kinds}; rgb_add_noise {calls['noise']}, "
+        f"add_real_background {calls['paste']}, fill_depth_fast "
+        f"{calls['fill']} calls")
+    if not steps or len(losses) != len(steps) \
+            or not np.isfinite(losses).all():
+        fail(f"ycbv train: {len(steps)} steps, losses {losses}")
+    if min(kinds.values()) == 0 or calls["paste"] == 0 \
+            or calls["noise"] < calls["paste"] or calls["fill"] == 0:
+        fail(f"ycbv train: picks {kinds}, calls {calls}")
+    out = osp.join(workdir, "ycbv_train_eval")
+    sim.cosine_argmax.launches = 0
+    with FitChecks(sim, "ycbv eval of the trained checkpoint") as fc:
+        cli.main(["eval", "--dataset", "ycbv", "--data-root", root,
+                  "--torch-checkpoint", osp.join(ckpt_root, "checkpoints"),
+                  "--cls-id", "1", "--exact-knn", "--output-dir", out])
+    n = sim.cosine_argmax.launches
+    rows = read_csv_poses(osp.join(out, "gt_ycbv-test.csv"))
+    if fc.n != n or len(rows) != YCBV_TEST[1]:
+        fail(f"ycbv eval of the trained checkpoint: {n} launches, {fc.n} "
+             f"checked, {len(rows)} rows")
+    log(f"  cli eval of the ycbv checkpoint: {len(rows)} rows, {n} kernel "
+        "launches held against the plain argmax")
+    return n
+
+
+def ycbv_phase(sim, workdir):
+    """The YCB-V preset (fill_depth, the real/pbr mix, noise and real
+    backgrounds) at its widths: cli eval at b=128 on object 1, cli infer
+    --stacked on one mixed batch of 128 over the 21 objects, cli train at
+    b=8; finalize on the card against the CPU; the host costs.  Returns
+    the similarity launches of the eval, stacked and trained-eval runs."""
+    from gdm_tpu_torch import cli
+    from gdm_tpu_torch.configs import YCBV as cfg
+
+    root, ckpt = osp.join(workdir, "ycbv"), osp.join(workdir, "ckpt_ycbv")
+    batch = cfg.solver.val_batch_size
+    t0 = time.perf_counter()
+    write_ycbv_tree(root, ckpt)
+    log(f"  synthetic YCB-V tree ({sum(YCBV_TEST.values())} test frames of "
+        f"{len(cfg.data.obj_ids)} objects, {YCBV_TRAIN_FRAMES} frames of "
+        "object 1 in each train subset, 480x640) and checkpoints written "
+        f"in {time.perf_counter() - t0:.2f} s")
+    ycbv_host_costs(cfg, root)
+    ycbv_finalize_check(cfg, root)
+
+    launches = 0
+    common = ["--dataset", "ycbv", "--data-root", root, "--torch-checkpoint",
+              ckpt, "--exact-knn", "--num-workers", "8"]
+    out = osp.join(workdir, "ycbv_out")
+    torch.cuda.reset_peak_memory_stats()
+    sim.cosine_argmax.launches = 0
+    t0 = time.perf_counter()
+    with FitChecks(sim, "ycbv eval") as fc:
+        res = cli.main(["eval", *common, "--cls-id", "1", "--output-dir",
+                        out])
+    wall = time.perf_counter() - t0 - fc.seconds
+    n = sim.cosine_argmax.launches
+    launches += n
+    rows = read_csv_poses(osp.join(out, "gt_ycbv-test.csv"))
+    log(f"  cli eval --dataset ycbv (object 1, b={batch}): device ms per "
+        "batch " + ", ".join(
+            f"{b['device_ms']:.2f} ({b['device_ms'] - c:.2f} without the "
+            f"plain check's {c:.2f})"
+            for b, c in zip(res["timing"], fc.check_ms[1:]))
+        + f"; {len(rows)} rows in {wall:.2f} s end to end; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"kernel launches {n}, each held against the plain argmax")
+    if n != len(res["timing"]) + 1 or fc.n != n or len(rows) != YCBV_TEST[1]:
+        fail(f"ycbv eval: {n} launches, {fc.n} checked, {len(rows)} rows")
+    check_poses(np.stack(list(rows.values())), len(rows))
+
+    csv = osp.join(workdir, "ycbv_stacked.csv")
+    torch.cuda.reset_peak_memory_stats()
+    sim.cosine_argmax.launches = 0
+    t0 = time.perf_counter()
+    with StackedChecks(sim, "ycbv stacked") as sc:
+        res = cli.main(["infer", *common, "--stacked", "--stacked-group",
+                        str(STACKED_GROUP), "--output", csv])
+    wall = time.perf_counter() - t0 - sc.seconds
+    n = sim.cosine_argmax.launches
+    launches += n
+    timing = res["timing"]
+    rows = read_csv_poses(csv)
+    frames = sum(b["n"] for b in timing)
+    net = [b["device_ms"] - c for b, c in zip(timing, sc.check_ms[1:])]
+    dev_s = sum(net) / 1e3
+    pos = {oid: p for p, oid in enumerate(cfg.data.obj_ids)}
+    want = stacked_launches([pos[k[2]] for k in rows], timing, batch,
+                            "by_class")
+    log(f"  cli infer --stacked --dataset ycbv (by_class, group "
+        f"{STACKED_GROUP}): {frames} frames of {len({k[2] for k in rows})} "
+        f"objects in {len(timing)} batch(es), device ms per batch "
+        + ", ".join(f"{b['device_ms']:.2f} ({n:.2f} without the plain "
+                    "checks)" for b, n in zip(timing, net))
+        + f"; {frames / dev_s:.2f} frames/s device, {frames / wall:.2f} "
+        "frames/s end to end (21 engine builds and the warm-up included); "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; kernel "
+        f"launches {n} (want {want}), each held against the plain argmax")
+    if len(rows) != sum(YCBV_TEST.values()) or len(timing) != 1 \
+            or len({k[2] for k in rows}) != len(cfg.data.obj_ids):
+        fail(f"ycbv stacked: {len(rows)} rows in {len(timing)} batches")
+    if n != want or sc.n != len(timing) + 1:
+        fail(f"ycbv stacked: {n} launches (want {want}), {sc.n} batches "
+             "checked")
+    check_poses(np.stack(list(rows.values())), len(rows))
+    launches += ycbv_train(sim, cfg, workdir, root)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1719,7 +2084,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     secs = _build.build_all(["similarity", "render_depth", "png_unfilter",
-                             "radius_nn", "jpeg"])
+                             "radius_nn", "jpeg", "depth_fill"])
     log(f"builds, all at once, in {time.perf_counter() - t0:.2f} s: "
         + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
     for name in ("similarity", "render_depth"):
@@ -1753,6 +2118,9 @@ def main() -> int:
     phase("train")
     with tempfile.TemporaryDirectory() as workdir:
         launches_train, _ = train_phase(sim, workdir)
+    phase("ycbv")
+    with tempfile.TemporaryDirectory() as workdir:
+        launches_ycbv = ycbv_phase(sim, workdir)
     log(f"  phase wall time {time.perf_counter() - t_phase[0]:.1f} s")
 
     # one entry per kernel: the eval shape (batch 128, the main path the
@@ -1765,13 +2133,14 @@ def main() -> int:
         "replaces": "gdm_tpu/ops/pallas/similarity.py:89",
         "launches": (launches_eval + launches_serve + launches_train
                      + launches_refine + launches_stacked
-                     + launches_vsd["cosine_argmax"]),
+                     + launches_vsd["cosine_argmax"] + launches_ycbv),
         "launches_eval": launches_eval,
         "launches_serve": launches_serve,
         "launches_train": launches_train,
         "launches_refine": launches_refine,
         "launches_stacked": launches_stacked,
         "launches_vsd": launches_vsd["cosine_argmax"],
+        "launches_ycbv": launches_ycbv,
         "max_abs_err": err,
         "ms": at["eval"]["ms"],
         "plain_ms": at["eval"]["plain_ms"],

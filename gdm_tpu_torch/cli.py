@@ -40,6 +40,14 @@ frames round-robin, so that every batch mixes objects, and sends each
 row to its object's model (eval/multimodel.MultiObjectEngine) with that
 object's ICP gate.
 
+The model is built as the JAX CLI builds it: the widths of the
+reference (``--opt`` values of ``model.randla_d_out``,
+``model.spline_kernel`` and ``model.mesh_knn_k`` other than their
+defaults, or a ``model.n_mesh_node`` other than ``data.model_pt_num``,
+are refused: the JAX CLI ignores them), and the mesh graph of
+``data.model_pt_num`` vertices.  With ``data.fill_depth`` (YCB-V) the
+loader's depth-filled crop goes to the device beside the counts.
+
 The KNN pyramid is exact: it is the port's only mode.  What the JAX CLI
 offers and the port does not yet (``--save-viz``,
 ``--model-shards``, and for ``train`` also ``--pretrained-backbone``,
@@ -64,9 +72,9 @@ KNN_BLOCK_ELEMS = 1 << 30
 
 _NOT_PORTED = {
     "model_shards": "mesh-column sharding (ROADMAP queue 1 item 10)",
-    "save_viz": "pose overlays (ROADMAP queue 1 item 11)",
+    "save_viz": "pose overlays (ROADMAP queue 1 item 11e)",
     "pretrained_backbone": "the torchvision ResNet init of the CNN branch "
-                           "(ROADMAP queue 1 item 11)",
+                           "(ROADMAP queue 1 item 11d)",
     "multihost": "multi-process training (ROADMAP queue 1 item 9)",
 }
 
@@ -106,6 +114,30 @@ def _refuse_unported(args, log):
     if not getattr(args, "exact_knn", True):
         log.info("approximate KNN is not ported: the pyramid is exact "
                  "(as with --exact-knn)")
+
+
+def model_config(dataset: str, opts):
+    """The preset with its ``--opt`` overrides, refusing the model widths
+    that the JAX CLI ignores (gdm_tpu/cli.py:105-106,166-170 build the
+    default widths and a mesh graph of data.model_pt_num vertices), so
+    that both CLIs build the same model from one configuration."""
+    from gdm_tpu_torch.configs import ModelConfig, get_config
+
+    cfg = get_config(dataset, opts)
+    default = ModelConfig()
+    for field in ("randla_d_out", "spline_kernel", "mesh_knn_k"):
+        val, want = getattr(cfg.model, field), getattr(default, field)
+        if tuple(np.atleast_1d(val)) != tuple(np.atleast_1d(want)):
+            raise ValueError(
+                f"--opt model.{field}={val}: the reference CLI ignores "
+                f"model.{field} and builds {want}; the port refuses other "
+                "values so that both build the same model")
+    if cfg.model.n_mesh_node != cfg.data.model_pt_num:
+        raise ValueError(
+            f"--opt model.n_mesh_node={cfg.model.n_mesh_node}: the "
+            "reference CLI ignores model.n_mesh_node and builds the mesh "
+            f"graph of data.model_pt_num={cfg.data.model_pt_num} vertices")
+    return cfg
 
 
 def knn_chunk_for(requested: int, batch: int, cfg, log) -> int:
@@ -288,14 +320,13 @@ def _object_mesh(cfg, cls_id, data_root):
 
 def evaluate(args):
     from gdm_tpu_torch import refdata
-    from gdm_tpu_torch.configs import get_config
     from gdm_tpu_torch.data.dataset import PoseDataset
     from gdm_tpu_torch.eval.evaluator import Evaluator
 
     log = get_logger("eval")
     _refuse_unported(args, log)
     device = _device(args)
-    cfg = get_config(args.dataset, args.opt)
+    cfg = model_config(args.dataset, args.opt)
     refd = refdata.get(args.dataset)
     batch_size = args.batch_size or cfg.solver.val_batch_size
     cls_ids = [args.cls_id] if args.cls_id else list(cfg.data.obj_ids)
@@ -413,7 +444,6 @@ def infer(args):
     ``--stacked`` serves the objects' frames interleaved, each batch
     mixing objects (the stream of a live feed of mixed detections)."""
     from gdm_tpu_torch import refdata
-    from gdm_tpu_torch.configs import get_config
     from gdm_tpu_torch.data.dataset import PoseDataset
 
     log = get_logger("infer")
@@ -421,7 +451,7 @@ def infer(args):
         raise SystemExit("--stacked and --model-shards are exclusive")
     _refuse_unported(args, log)
     device = _device(args)
-    cfg = get_config(args.dataset, args.opt)
+    cfg = model_config(args.dataset, args.opt)
     refd = refdata.get(args.dataset)
     batch_size = args.batch_size or cfg.solver.val_batch_size
     cls_ids = [args.cls_id] if args.cls_id else list(cfg.data.obj_ids)
@@ -574,9 +604,7 @@ def _object_mesh_graph(cfg, refd, cls_id, obj_name, mesh_fps, data_root):
             sym = symmetry_transform(info[str(cls_id)])
     fps_mm = np.concatenate([mesh_fps[:, :3] * 1000.0, mesh_fps[:, 3:]],
                             axis=1)
-    m = cfg.model
-    return build_mesh_graph(fps_mm, m.n_mesh_node,
-                            kernel_size=m.spline_kernel, k=m.mesh_knn_k,
+    return build_mesh_graph(fps_mm, cfg.data.model_pt_num,
                             sym_transform=sym)
 
 
@@ -658,7 +686,6 @@ def train(args):
     import torch
 
     from gdm_tpu_torch import refdata, weights
-    from gdm_tpu_torch.configs import get_config
     from gdm_tpu_torch.data.dataset import PoseDataset
     from gdm_tpu_torch.data.loader import DataLoader
     from gdm_tpu_torch.models.geomatch import GeoMatch, MeshArrays
@@ -673,7 +700,7 @@ def train(args):
     log = get_logger("train")
     _refuse_unported(args, log)
     device = _device(args)
-    cfg = get_config(args.dataset, args.opt)
+    cfg = model_config(args.dataset, args.opt)
     refd = refdata.get(args.dataset)
     sol = cfg.solver
     epochs = args.epochs or sol.total_epochs
@@ -697,7 +724,8 @@ def train(args):
 
         ds = PoseDataset(cfg, cls_id, "train", mesh_fps=mesh_fps,
                          data_root=args.data_root,
-                         rng=np.random.RandomState(args.seed))
+                         rng=np.random.RandomState(args.seed),
+                         diameter_m=diameter_m)
         dl = DataLoader(ds, batch_size, shuffle=True, drop_last=True,
                         num_workers=args.num_workers, seed=args.seed,
                         workers=args.loader_workers)
@@ -719,7 +747,8 @@ def train(args):
         state = create_train_state(model, lr, sol.weight_decay,
                                    sol.skip_nonfinite)
         positive_r = cfg.model.neighbor_dis_th * diameter_m
-        train_step = make_train_step(bnm, positive_r, args.knn_chunk)
+        train_step = make_train_step(bnm, positive_r, args.knn_chunk,
+                                     cfg.data.fill_depth)
 
         ckpt_dir = osp.join(args.ckpt_root, "checkpoints", obj_name)
         start_epoch = 0

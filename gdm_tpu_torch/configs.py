@@ -4,10 +4,9 @@ Counterpart of gdm_tpu/configs/base.py for the fields that inference,
 training, the BOP loader and the CLI read, in the same ``config.data.*``
 / ``config.model.*`` / ``config.solver.*`` layout and with the same
 preset values (reference config/lmo_cfg.py, lmfull_cfg.py,
-ycbv_cfg.py).  ``fill_depth`` and ``real_pbr_mix`` are here because the
-YCB-V preset sets them; the port's loader refuses them until YCB-V
-training data is ported.  The backbone choice, bf16 compute and the
-pretrained-backbone path are not ported (ROADMAP queue 1 items 4, 11).
+ycbv_cfg.py).  The backbone choice (``model.backbone``: only the
+flagship ``randla_spline``), bf16 compute and the pretrained-backbone
+path are not ported (ROADMAP queue 1 items 4, 11f, 11d).
 """
 
 from __future__ import annotations
@@ -162,6 +161,12 @@ def get_config(name: str, opts: Sequence[str] = ()) -> Config:
         section, _, field = path.partition(".")
         if not field:
             raise ValueError(f"--opt key must be section.field: {opt!r}")
+        if path == "model.backbone":
+            if raw != "randla_spline":
+                raise NotImplementedError(
+                    f"--opt model.backbone={raw}: only the randla_spline "
+                    "backbone is ported (DGCNN is ROADMAP queue 1 item 4)")
+            continue
         sub = getattr(cfg, section)
         val = _parse_value(path, getattr(sub, field), raw)
         cfg = dataclasses.replace(

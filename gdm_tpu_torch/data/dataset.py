@@ -9,11 +9,12 @@ correspondences (data/gt_gen); the device does the rest (data/pipeline).
 
 Per-sample output keys (numpy):
   rgb_u8 [S,S,3] uint8, dpt_u16 [S,S] uint16 (cropped raw counts),
-  dpt_scale f32 scalar (dpt_m = dpt_u16 / dpt_scale), K_crop [3,3] f32,
-  choose [N] i32, RT [3,4] f32 (GT pose; zeros in infer mode), K [3,3]
-  f32; train adds the GT keys the losses read: labels / origin_labels
-  [N] u8, match_idx [N] u16 (i32 for meshes of >= 65535 vertices),
-  visible_flag [M] u8; test and infer add cls_id / det (i32) and
+  dpt_scale f32 scalar (dpt_m = dpt_u16 / dpt_scale), dpt_filled [S,S]
+  f32 (the depth-filled crop in metres, only with data.fill_depth),
+  K_crop [3,3] f32, choose [N] i32, RT [3,4] f32 (GT pose; zeros in
+  infer mode), K [3,3] f32; train adds the GT keys the losses read:
+  labels / origin_labels [N] u8, match_idx [N] u16 (i32 for meshes of
+  >= 65535 vertices), visible_flag [M] u8; test and infer add cls_id / det (i32) and
   file_name (str, via meta).  Test mode reads no mask and generates no
   GT (the JAX package computes evaluator-side labels there that no
   consumer of the port reads; they would cost ~12 ms per sample).
@@ -27,13 +28,16 @@ As in the JAX package, and bit-equal to it:
     from the same rng (linemod_pbr.py:479,509,662-670);
   * the GT match threshold is 0.01 m for LM-family training (the
     reference's hardcode, linemod_pbr.py:641), nn_dist_th x diameter for
-    YCB-V, 0.02 m for test labels;
+    YCB-V;
   * each annotation's HPR visibility is computed once and cached
-    bit-packed (data.cache_visibility).
-
-Not ported (each raises NotImplementedError): YCB-V training
-(``real_pbr_mix``, ``add_noise``, real backgrounds) and ``fill_depth``,
-ROADMAP queue 1 item 11.
+    bit-packed (data.cache_visibility);
+  * YCB-V (ycbv_pbr.py:352-387,468-506,663-690): with
+    ``data.real_pbr_mix`` a train item draws a real record with that
+    probability, else a pbr one, whatever its index; a ``synt`` train
+    crop gets the photometric noise, a real frame's background behind
+    the object and, at p = 0.2, the noise again (data/augment); with
+    ``data.fill_depth`` the points are chosen on the filled crop
+    (``dpt_filled``), their xyz still coming from the raw counts.
 """
 
 from __future__ import annotations
@@ -44,6 +48,11 @@ import numpy as np
 
 from gdm_tpu_torch.configs import Config
 from gdm_tpu_torch.data import bop
+from gdm_tpu_torch.data.augment import (
+    add_real_background,
+    fill_depth_fast,
+    rgb_add_noise,
+)
 from gdm_tpu_torch.data.crop import (
     INTER_LINEAR,
     INTER_NEAREST,
@@ -52,11 +61,6 @@ from gdm_tpu_torch.data.crop import (
 )
 from gdm_tpu_torch.data.gt_gen import pose_gt_info, pose_visibility
 from gdm_tpu_torch.data.imio import imread_mask, imread_rgb, imread_u16
-
-_YCBV_TRAIN = ("YCB-V training data (real/pbr mix, noise, real "
-               "backgrounds, depth fill) is not ported (ROADMAP queue 1 "
-               "item 11)")
-
 
 class PoseDataset:
     """One-object BOP dataset (the reference runs one model per cls_id).
@@ -71,6 +75,8 @@ class PoseDataset:
       mesh_fps: optional preloaded [M, 9] fps mesh (xyz m | rgb | nrm)
         for GT generation; in train mode by default loaded from
         <data_root>/kps or built from the PLY.
+      diameter_m: the object's diameter in metres; YCB-V training
+        matches GT within data.nn_dist_th x diameter_m.
       rng: np.random.RandomState whose first draw seeds the train
         stream (default RandomState(0)).
       data_root: the BOP dataset directory (default cfg.data.data_root).
@@ -81,17 +87,11 @@ class PoseDataset:
                  mesh_fps: np.ndarray | None = None,
                  rng: np.random.RandomState | None = None,
                  data_root: str | None = None,
-                 detections_file: str | None = None):
+                 detections_file: str | None = None,
+                 diameter_m: float | None = None):
         if mode not in ("train", "test", "infer"):
             raise ValueError(f"PoseDataset mode {mode!r}")
         d = cfg.data
-        if d.fill_depth:
-            raise NotImplementedError(
-                "data.fill_depth (depth fill of the crop, YCB-V) is not "
-                "ported (ROADMAP queue 1 item 11)")
-        if mode == "train" and (d.real_pbr_mix is not None
-                                or d.name == "ycbv"):
-            raise NotImplementedError(_YCBV_TRAIN)
         self.cfg = cfg
         self.cls_id = int(cls_id)
         self.mode = mode
@@ -108,8 +108,16 @@ class PoseDataset:
             from gdm_tpu_torch.data.ply import load_or_build_fps_mesh
             mesh_fps = load_or_build_fps_mesh(root, cls_id, d.model_pt_num)
         self.mesh_pts = None if mesh_fps is None else mesh_fps[:, :3]
-        self.gt_match_th_m = 0.01           # linemod_pbr.py:641 hardcode
+        if mode == "train" and d.name == "ycbv":
+            if diameter_m is None:
+                raise ValueError("YCB-V training needs the object's "
+                                 "diameter_m (GT match threshold)")
+            self.gt_match_th_m = d.nn_dist_th * diameter_m
+        else:
+            self.gt_match_th_m = 0.01       # linemod_pbr.py:641 hardcode
         self.annos: list[bop.Record] = []
+        self.real_annos: list[bop.Record] = []
+        self.pbr_annos: list[bop.Record] = []
         subsets = d.train_subsets if mode == "train" else d.test_subsets
         for subset in subsets:
             if mode == "train":
@@ -117,6 +125,10 @@ class PoseDataset:
                     root, subset, d.obj_ids, mode, im_hw=self.im_hw,
                     selected_id=cls_id)
                 self.annos += recs
+                if "pbr" in subset:
+                    self.pbr_annos += recs
+                else:
+                    self.real_annos += recs
                 continue
             dets = bop.load_detections(
                 detections_file or osp.join(root, subset, "real_det.json"))
@@ -131,6 +143,9 @@ class PoseDataset:
                 # per-object evaluation keeps only cls_id's instances
                 recs = [r for r in recs if r.obj_id == self.cls_id]
             self.annos += recs
+        self.mix_real = d.real_pbr_mix if mode == "train" else None
+        self.fill_depth = d.fill_depth
+        self.add_noise = mode == "train" and d.name == "ycbv"
         # per-annotation HPR visibility, bit-packed (n_mesh / 8 bytes);
         # each loader worker process holds its own copy
         self._vis_cache: dict[int, np.ndarray] | None = (
@@ -143,14 +158,27 @@ class PoseDataset:
         """Mix the epoch into the train rng (DataLoader.set_epoch)."""
         self.epoch = epoch
 
+    def _pick_record(self, idx: int, rng: np.random.RandomState
+                     ) -> bop.Record:
+        """The train record of ``idx``: with the real/pbr mix, a real
+        record with probability mix_real, else a pbr one, drawn from
+        ``rng`` whatever ``idx`` is (ycbv_pbr.py:682-690)."""
+        if self.mode != "train" or self.mix_real is None \
+                or not self.real_annos or not self.pbr_annos:
+            return self.annos[idx]
+        if rng.rand() < self.mix_real:
+            return self.real_annos[rng.randint(len(self.real_annos))]
+        return self.pbr_annos[rng.randint(len(self.pbr_annos))]
+
     def __getitem__(self, idx: int) -> dict:
         if self.mode == "train":
             rng = np.random.RandomState(
                 (self._seed_base + 7919 * idx + 104729 * self.epoch)
                 % (2 ** 31))
-            data = self.get_item(self.annos[idx], rng)
+            data = self.get_item(self._pick_record(idx, rng), rng)
             while data is None:
-                data = self.get_item(self.annos[rng.randint(len(self))], rng)
+                data = self.get_item(
+                    self._pick_record(rng.randint(len(self)), rng), rng)
             return data
         # per-index rng: point sampling is the same whatever the loader's
         # thread scheduling, and the same as the JAX package's
@@ -203,8 +231,35 @@ class PoseDataset:
             dpt_raw, center, scale, S, interpolation=INTER_NEAREST)
         K_crop = (crop_affine_matrix(center, scale, S) @ K).astype(
             np.float32)
+        mask_c = None
+        if train:
+            mask_c = crop_resize_by_warp_affine(
+                imread_mask(rec.mask_file), center, scale, S,
+                interpolation=INTER_NEAREST)
 
-        choose = np.nonzero((dptc_u16 > 0).ravel())[0]
+        if self.add_noise and rec.img_type == "synt":
+            rgb_c = rgb_add_noise(rgb_c, rng)
+            if self.real_annos:
+                dpt_c = dptc_u16.astype(np.float32) / divisor
+                rgb_c, dpt_c = add_real_background(
+                    rgb_c, mask_c, dpt_c, (dptc_u16 > 0).astype(np.uint8),
+                    self.real_annos, rng, S, self.im_hw)
+                # back to counts: exact for the crop's own pixels, the
+                # nearest count for pasted real depth
+                dptc_u16 = np.clip(np.round(dpt_c * divisor), 0,
+                                   65535).astype(np.uint16)
+            if rng.rand() > 0.8:
+                rgb_c = rgb_add_noise(rgb_c, rng)
+
+        dpt_filled = None
+        if self.fill_depth:
+            dpt_filled = fill_depth_fast(
+                dptc_u16.astype(np.float32) / divisor)
+            valid_px = dpt_filled > 1e-6
+        else:
+            valid_px = dptc_u16 > 0           # counts >= 1 <=> > 1e-6 m
+
+        choose = np.nonzero(valid_px.ravel())[0]
         if len(choose) < 200 and train:
             return None
         if len(choose) == 0:
@@ -229,6 +284,8 @@ class PoseDataset:
             "RT": rec.pose.astype(np.float32),
             "K": K.astype(np.float32),
         }
+        if dpt_filled is not None:
+            item["dpt_filled"] = dpt_filled
         if not train:
             item["cls_id"] = np.int32(rec.obj_id)
             item["det"] = np.int32(det)
@@ -244,9 +301,6 @@ class PoseDataset:
         y = (vv - K_crop[1, 2]) * z / K_crop[1, 1]
         cld = np.nan_to_num(np.stack([x, y, z], -1), posinf=0.0,
                             neginf=0.0)
-        mask_c = crop_resize_by_warp_affine(
-            imread_mask(rec.mask_file), center, scale, S,
-            interpolation=INTER_NEAREST)
         labels_pt = mask_c.ravel()[choose]
         labels_pt[labels_pt == 255] = 1
         labels, match_idx, visible_flag, valid = pose_gt_info(

@@ -48,13 +48,17 @@ def to_device(raw: dict, device) -> dict:
     return out
 
 
-def finalize_batch(batch: dict) -> dict:
+def finalize_batch(batch: dict, fill_depth: bool = False) -> dict:
     """Colour normalisation, backprojection, normals and point gather.
 
     Args:
       batch: tensors from :func:`to_device`: rgb_u8 [B,S,S,3] uint8,
         dpt_u16 [B,S,S] integer depth counts + dpt_scale [B] counts per
-        metre, K_crop [B,3,3], choose [B,N] int64, optionally det [B].
+        metre, K_crop [B,3,3], choose [B,N] int64, optionally det [B],
+        and with ``fill_depth`` dpt_filled [B,S,S] f32 metres.
+      fill_depth: take the normals from dpt_filled (YCB-V,
+        ycbv_pbr.py:477-486); the points' xyz still come from the raw
+        counts.
     Returns:
       rgb [B,S,S,3] f32, cld_rgb_nrm [B,N,9], xyz_img [B,S,S,3], choose,
       and det when present.
@@ -67,7 +71,8 @@ def finalize_batch(batch: dict) -> dict:
         / batch["dpt_scale"][:, None, None]
     xyz_img = torch.nan_to_num(depth_to_xyz(dpt, batch["K_crop"]),
                                nan=0.0, posinf=0.0, neginf=0.0)
-    nrm_img = depth_normals(dpt * 1000.0, batch["K_crop"])
+    dpt_n = batch["dpt_filled"] if fill_depth else dpt
+    nrm_img = depth_normals(dpt_n * 1000.0, batch["K_crop"])
 
     b, s = rgb.shape[:2]
     choose = batch["choose"]

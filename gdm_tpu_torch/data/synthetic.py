@@ -106,7 +106,7 @@ def write_synthetic_bop_root(root, mesh_fps, n_frames=96,
                              subsets=("test",), im_hw=(480, 640),
                              K=None, seed=0, z_range=(0.4, 0.6),
                              obj_id=1, splat=3, render_mult=16,
-                             eval_meshes=False):
+                             eval_meshes=False, mm_depth=False):
     """Fabricate a BOP-format dataset ON DISK at production shapes.
 
     Full-frame rgb / depth (uint16 png, depth_scale 0.1) / mask_visib
@@ -120,10 +120,13 @@ def write_synthetic_bop_root(root, mesh_fps, n_frames=96,
     Args:
       mesh_fps: a single [n, 9] fps array (written as `obj_id`), or a
         dict {obj_id: fps array} — each object gets its own scene.
+      n_frames: frames per scene, or a dict {obj_id: frames}.
       subsets: subsets to write; 'train_pbr' frames are JPEG, the
         others PNG.
       eval_meshes: also write models_eval/obj_XXXXXX.ply (convex hull
         of the fps points, BOP millimetres).
+      mm_depth: depth PNGs in millimetres (depth_scale 1, YCB-V's real
+        and synt frames) instead of 0.1 mm counts (depth_scale 0.1).
 
     Returns the root path.
     """
@@ -165,7 +168,8 @@ def write_synthetic_bop_root(root, mesh_fps, n_frames=96,
             for sub in ("rgb", "depth", "mask_visib"):
                 os.makedirs(os.path.join(sdir, sub), exist_ok=True)
             gt, gt_info, cams = {}, {}, {}
-            for i in range(n_frames):
+            n = n_frames[oid] if isinstance(n_frames, dict) else n_frames
+            for i in range(n):
                 R = Rotation.random(
                     random_state=seed * 10000 + 997 * scene_id + i
                 ).as_matrix()
@@ -198,7 +202,8 @@ def write_synthetic_bop_root(root, mesh_fps, n_frames=96,
                 else:
                     imwrite_png(rgb_path, rgb)
                 imwrite_png(os.path.join(sdir, f"depth/{i:06d}.png"),
-                            (depth * 10000).astype(np.uint16))
+                            (depth * (1000 if mm_depth else 10000)
+                             ).astype(np.uint16))
                 imwrite_png(os.path.join(
                     sdir, f"mask_visib/{i:06d}_000000.png"), mask)
                 gt[str(i)] = [{"obj_id": oid,
@@ -208,7 +213,7 @@ def write_synthetic_bop_root(root, mesh_fps, n_frames=96,
                     "bbox_obj": bbox,
                     "px_count_visib": int((mask > 0).sum())}]
                 cams[str(i)] = {"cam_K": np.asarray(K).ravel().tolist(),
-                                "depth_scale": 0.1}
+                                "depth_scale": 1.0 if mm_depth else 0.1}
                 x1, y1, w, h = bbox
                 det[f"{scene_id}/{i}"] = {str(oid): [
                     {"score": 0.3, "bbox": [0, 0, 6, 6]},       # decoy
@@ -224,4 +229,37 @@ def write_synthetic_bop_root(root, mesh_fps, n_frames=96,
             f.write("\n".join(lines) + "\n")
         with open(os.path.join(root, subset, "real_det.json"), "w") as f:
             json.dump(det, f)
+    return root
+
+
+def write_synthetic_ycbv_root(root, meshes, n_test, train_obj, n_train,
+                              im_hw=(480, 640), seed=0, diameters_mm=None,
+                              sym_ids=()):
+    """A YCB-V-shaped BOP tree (tests/test_ycbv_e2e.py's mini tree at any
+    size): ``test`` frames of every object (``n_test``: frames per object,
+    or {obj_id: frames}; PNG, depth_scale 0.1), and for ``train_obj``
+    ``n_train`` frames of each train subset: ``train_real`` and
+    ``train_synt`` (PNG, depth in millimetres) and ``train_pbr`` (JPEG,
+    depth_scale 0.1), plus models/models_info.json (``diameters_mm``
+    {obj_id: mm}, a continuous z symmetry for each of ``sym_ids``).
+
+    Returns the root path."""
+    kw = dict(im_hw=im_hw, seed=seed)
+    write_synthetic_bop_root(root, meshes, n_test, subsets=("test",), **kw)
+    one = {train_obj: meshes[train_obj]}
+    write_synthetic_bop_root(root, one, n_train, subsets=("train_pbr",),
+                             **kw)
+    write_synthetic_bop_root(root, one, n_train,
+                             subsets=("train_real", "train_synt"),
+                             mm_depth=True, **kw)
+    diameters_mm = diameters_mm or {}
+    info = {str(oid): {"diameter": float(diameters_mm.get(
+        oid, 2.0 * np.linalg.norm(fps[:, :3], axis=1).max()))}
+        for oid, fps in meshes.items()}
+    for oid in sym_ids:
+        info[str(oid)]["symmetries_continuous"] = [
+            {"axis": [0, 0, 1], "offset": [0, 0, 0]}]
+    os.makedirs(os.path.join(root, "models"), exist_ok=True)
+    with open(os.path.join(root, "models", "models_info.json"), "w") as f:
+        json.dump(info, f)
     return root

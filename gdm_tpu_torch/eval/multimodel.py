@@ -65,8 +65,8 @@ class MultiObjectEngine:
 
     Args:
       engines: one PoseEngine per object, on one device, built with the
-        same batch, KNN chunk and refinement; ``obj_pos`` p selects
-        ``engines[p]``, whose ``icp_reject`` gates its rows' ICP.
+        same batch, KNN chunk, refinement and depth fill; ``obj_pos`` p
+        selects ``engines[p]``, whose ``icp_reject`` gates its rows' ICP.
       schedule: 'by_class' or 'vmap' (see the module docstring).
       group: rows per forward of the by_class schedule.
 
@@ -84,12 +84,13 @@ class MultiObjectEngine:
             raise ValueError(f"group {group}: want >= 1")
         e0 = engines[0]
         for e in engines[1:]:
-            if (e.device, e.knn_chunk, e.refine) != (e0.device, e0.knn_chunk,
-                                                      e0.refine):
-                raise ValueError("engines differ in device, KNN chunk or "
-                                 "refinement")
+            if (e.device, e.knn_chunk, e.refine, e.fill_depth) != (
+                    e0.device, e0.knn_chunk, e0.refine, e0.fill_depth):
+                raise ValueError("engines differ in device, KNN chunk, "
+                                 "refinement or depth fill")
         self.engines, self.schedule, self.group = engines, schedule, group
         self.device, self.knn_chunk = e0.device, e0.knn_chunk
+        self.fill_depth = e0.fill_depth
         batch = e0.meta["raw_spec"]["choose"][0][0]
         self.meta = dict(e0.meta, schedule=schedule, group=group,
                          objects=len(engines),
@@ -104,7 +105,8 @@ class MultiObjectEngine:
         """Host arrays (see meta['raw_spec']) -> finalized device batch;
         ``obj_pos`` stays on the host."""
         fin = finalize_batch(to_device(
-            {k: v for k, v in raw.items() if k != "obj_pos"}, self.device))
+            {k: v for k, v in raw.items() if k != "obj_pos"}, self.device),
+            self.fill_depth)
         fin["obj_pos"] = np.asarray(raw["obj_pos"])
         return fin
 

@@ -42,10 +42,12 @@ def full_f32():
         torch.backends.cudnn.allow_tf32 = cd
 
 
-def raw_input_spec(batch: int, im_size: int, n_sample: int) -> dict:
+def raw_input_spec(batch: int, im_size: int, n_sample: int,
+                   fill_depth: bool = False) -> dict:
     """{key: [shape, dtype]} of the raw request arrays, sorted by key, as
-    gdm_tpu.serve.raw_input_spec(..., fill_depth=False, with_det=True)
-    writes into meta.json."""
+    gdm_tpu.serve.raw_input_spec(..., fill_depth, with_det=True) writes
+    into meta.json: with ``fill_depth`` the depth-filled crop
+    ``dpt_filled`` [batch, S, S] float32 metres rides beside the counts."""
     spec = {
         "K_crop": [[batch, 3, 3], "float32"],
         "choose": [[batch, n_sample], "int32"],
@@ -54,6 +56,8 @@ def raw_input_spec(batch: int, im_size: int, n_sample: int) -> dict:
         "dpt_u16": [[batch, im_size, im_size], "uint16"],
         "rgb_u8": [[batch, im_size, im_size, 3], "uint8"],
     }
+    if fill_depth:
+        spec["dpt_filled"] = [[batch, im_size, im_size], "float32"]
     return dict(sorted(spec.items()))
 
 
@@ -61,7 +65,9 @@ class PoseEngine:
     """GeoMatch inference for one object on one device.
 
     Args:
-      config: shapes and model widths (gdm_tpu_torch.configs.Config).
+      config: shapes, model widths and ``data.fill_depth`` (the requests
+        carry the depth-filled crop, whose normals the model reads)
+        (gdm_tpu_torch.configs.Config).
       mesh_fps: [m, 9] object array (xyz mm | rgb | normal).
       state_dict: reference-named weights (numpy or tensors).
       device: torch device; "cuda" raises when CUDA is absent.
@@ -85,6 +91,7 @@ class PoseEngine:
         weights.load_reference_state_dict(self.model, state_dict)
         self.model.to(self.device).eval()
         self.knn_chunk = knn_chunk
+        self.fill_depth = bool(config.data.fill_depth)
         self.refine, self.icp_reject = refine, float(icp_reject)
         graph = build_mesh_graph(mesh_fps, m.n_mesh_node,
                                  kernel_size=m.spline_kernel,
@@ -93,9 +100,11 @@ class PoseEngine:
         self._encode_mesh()
         self.meta = {
             "raw_spec": raw_input_spec(batch, config.data.input_size,
-                                       config.data.num_sample_points),
+                                       config.data.num_sample_points,
+                                       self.fill_depth),
             "output": "poses [batch, 3, 4] (world->cam R|t, metres)",
             "device": str(self.device),
+            "fill_depth": self.fill_depth,
             "exact_knn": True,
             "refine": refine,
             "icp_reject_m": self.icp_reject,
@@ -119,7 +128,7 @@ class PoseEngine:
 
     def finalize(self, raw: dict) -> dict:
         """Host arrays (see meta['raw_spec']) -> finalized device batch."""
-        return finalize_batch(to_device(raw, self.device))
+        return finalize_batch(to_device(raw, self.device), self.fill_depth)
 
     def infer(self, fin: dict) -> torch.Tensor:
         """Finalized batch -> poses [B, 3, 4] on the device."""

@@ -134,6 +134,8 @@ def synthetic_raw(spec: dict) -> dict:
     gdm_tpu.serve.synthetic_raw."""
     raw = {k: np.zeros(tuple(shape), np.dtype(dtype))
            for k, (shape, dtype) in spec.items()}
+    if "dpt_filled" in raw:
+        raw["dpt_filled"] += np.float32(0.5)
     if "dpt_u16" in raw:                # 5000 counts / 10000 = 0.5 m
         raw["dpt_u16"] += np.uint16(5000)
         raw["dpt_scale"] += np.float32(10000.0)

@@ -32,7 +32,8 @@ from gdm_tpu_torch.models.layers import set_train_step_state
 from gdm_tpu_torch.serve import full_f32
 from gdm_tpu_torch.train.state import TrainState
 
-# host arrays of a loader batch that the step ships to the device
+# host arrays of a loader batch that the step ships to the device (and
+# dpt_filled when the dataset fills depth)
 BATCH_KEYS = ("rgb_u8", "dpt_u16", "dpt_scale", "K_crop", "choose",
               "labels", "match_idx", "visible_flag", "RT")
 
@@ -60,11 +61,12 @@ def dropout_generator(rng: int, step: int, device) -> torch.Generator:
 
 
 def make_train_step(bn_momentum_fn, positive_r: float,
-                    knn_chunk: int = 1024):
+                    knn_chunk: int = 1024, fill_depth: bool = False):
     """Returns ``train_step(state, batch, mesh, rng, timing=None) ->
     metrics``.
 
-    ``batch`` is a loader batch (numpy, the keys of BATCH_KEYS), or the
+    ``batch`` is a loader batch (numpy, the keys of BATCH_KEYS, and
+    dpt_filled with ``fill_depth``: the normals come from it), or the
     model inputs made of one (:func:`train_inputs`) on the model's device;
     ``mesh`` is the object's MeshArrays on that device and ``rng`` an
     integer seed.  With a ``timing`` dict the step synchronises the device
@@ -72,6 +74,8 @@ def make_train_step(bn_momentum_fn, positive_r: float,
     finalize and pyramid), 'forward' (forward and loss), 'backward' and
     'optimizer'.
     """
+
+    keys = BATCH_KEYS + (("dpt_filled",) if fill_depth else ())
 
     def train_step(state: TrainState, batch: dict, mesh, rng: int,
                    timing: dict | None = None) -> dict:
@@ -85,7 +89,7 @@ def make_train_step(bn_momentum_fn, positive_r: float,
             else:
                 with torch.no_grad():
                     fin = finalize_batch(to_device(
-                        {k: batch[k] for k in BATCH_KEYS}, device))
+                        {k: batch[k] for k in keys}, device), fill_depth)
                     inputs = train_inputs(fin, positive_r, knn_chunk)
             clock.lap("inputs")
             model.train()

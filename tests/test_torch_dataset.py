@@ -203,17 +203,35 @@ def test_dataset_items_equal(bop_root, det_file, mode,  # noqa: F811
 
 
 def test_dataset_refuses_unported_modes(bop_root):  # noqa: F811
-    cfg = port_config(test_data._mini_config())
-    ycbv = dataclasses.replace(cfg, data=dataclasses.replace(
-        cfg.data, name="ycbv", real_pbr_mix=0.8))
-    with pytest.raises(NotImplementedError, match="YCB-V training"):
-        PoseDataset(ycbv, 1, "train", data_root=bop_root)
+    """An unknown mode raises; the YCB-V options, once refused, now give
+    the JAX package's items on the LM mini tree (a ycbv-named train set
+    with the real/pbr mix, and the depth fill in test mode): counts,
+    points and GT bit-equal, the filled plane within the bilateral
+    filter's bound (tests/test_torch_ycbv.py)."""
+    from gdm_tpu.data.dataset import PoseDataset as PoseDatasetJ
+    from test_torch_ycbv import BILATERAL_TOL
+
+    cfg_j = test_data._mini_config()
+    cfg = port_config(cfg_j)
     with pytest.raises(ValueError, match="mode"):
         PoseDataset(cfg, 1, "val", data_root=bop_root)
-    fill = dataclasses.replace(
-        cfg, data=dataclasses.replace(cfg.data, fill_depth=True))
-    with pytest.raises(NotImplementedError, match="fill_depth"):
-        PoseDataset(fill, 1, "test", data_root=bop_root)
+    for mode, data in (
+            ("train", dict(name="ycbv", real_pbr_mix=0.8, fill_depth=True)),
+            ("test", dict(fill_depth=True))):
+        cj = dataclasses.replace(cfg_j, data=dataclasses.replace(
+            cfg_j.data, **data))
+        ds_t = PoseDataset(port_config(cj), 1, mode, data_root=bop_root,
+                           rng=np.random.RandomState(0), diameter_m=0.1)
+        ds_j = PoseDatasetJ(cj, 1, mode, diameter_m=0.1, data_root=bop_root,
+                            rng=np.random.RandomState(0))
+        for i in range(len(ds_t)):
+            a, b = ds_t[i], ds_j[i]
+            assert "dpt_filled" in a and set(a) <= set(b)
+            for k in a:
+                if k == "dpt_filled":
+                    assert np.abs(a[k] - b[k]).max() <= BILATERAL_TOL
+                else:
+                    _assert_same(a[k], b[k], (mode, i, k))
 
 
 @pytest.mark.parametrize("bs", [3, 4])
