@@ -91,7 +91,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    5; the step split (inputs, forward, backward, optimizer) and
    device-only samples/s, the loader's ms/sample in train mode by stage
    and the train run's peak device memory.
-9. YCB-V: a synthetic YCB-V tree at 480x640 (the 21 objects, 128
+9. DGCNN (``--opt model.backbone=dgcnn``, seeded random weights, seg
+   head set so every point is foreground): ``cli eval`` at b=128 on the
+   eval phase's tree (160 valid rows, one kernel launch per batch plus
+   the warm-up, every batch held against the plain argmax), ``cli infer``
+   (the same rows and poses) and ``cli score`` (the same recalls); ``cli
+   train`` at b=24 on the train phase's tree, one epoch validating, then
+   ``cli eval`` of its checkpoint (finite losses, every validation and
+   eval batch held against the plain argmax).  The forward at b=128 with
+   its three scene graphs' share (each synchronised) and the mesh
+   branch's encode ms; the train step split and device-only samples/s at
+   b=24 and peak memory.  The forward and one train step on the card
+   against the CPU at full n and b=2: the card's graphs equal beyond
+   near-ties to the CPU's top-k on the same coordinates, the CPU's
+   forward on the card's graphs within 1e-4; the step on the CPU's
+   graphs: loss within 1e-4, float64 gradients per tensor within 1e-3,
+   f32 ones within 8 s_t + 1e-3 of the CPU's float64 (step_parity's
+   rule, the mesh input moved too).
+10. YCB-V: a synthetic YCB-V tree at 480x640 (the 21 objects, 128
    ``test`` frames: 8 of object 1, 6 of each other; 12 frames of object 1
    in each of ``train_real`` (PNG, depth in mm), ``train_pbr`` (JPEG) and
    ``train_synt``; models_info.json with 024_bowl's continuous symmetry)
@@ -1725,6 +1742,422 @@ def train_phase(sim, workdir):
 
 
 
+DGCNN = ["--opt", "model.backbone=dgcnn"]
+DGCNN_TOL = 1e-4    # card vs CPU: outputs and loss of the DGCNN variant
+TIE = 1e-6          # graph near-tie: gap < TIE (|x_i|^2 + |x_j|^2), float64
+
+
+class GraphTape:
+    """While active, every graph that gdm_tpu_torch.models.dgcnn builds
+    (each ``knn`` call, in order) is recorded with its coordinates, or,
+    given ``replay``, taken from an earlier tape instead of searched; with
+    ``timed`` each call is synchronised and its milliseconds kept."""
+
+    def __init__(self, replay=None, timed=False):
+        self.replay, self.timed = replay, timed
+        self.graphs, self.coords, self.ms = [], [], []
+
+    def __enter__(self):
+        from gdm_tpu_torch.models import dgcnn
+
+        self.mod, orig = dgcnn, dgcnn.knn
+
+        def knn(support, query, k, chunk=1024):
+            if self.timed:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if self.replay is not None:
+                idx = self.replay[len(self.graphs)].to(query.device)
+            else:
+                idx = orig(support, query, k, chunk)
+            if self.timed:
+                torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+            else:
+                self.graphs.append(idx)
+                self.coords.append(query)
+            return idx
+
+        self.orig, dgcnn.knn = orig, knn
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.knn = self.orig
+
+
+def graphs_beyond_near_ties(tag, tape):
+    """The card's graphs of ``tape`` against the CPU's top-k on the same
+    coordinates: wherever they differ, the two neighbours at that rank lie
+    at float64 distances from the point within TIE (|x_i|^2 + |x_j|^2) of
+    each other.  Returns (rows that differ, rows) over all graphs."""
+    from gdm_tpu_torch.ops.knn import knn
+
+    n_diff = n_rows = 0
+    for a, x in zip(tape.graphs, tape.coords):
+        x = x.cpu()
+        a, b = a.cpu(), knn(x, x, a.shape[-1])
+        x = x.double()
+        diff = a != b
+        n_diff += int(diff.any(-1).sum())
+        n_rows += a.shape[0] * a.shape[1]
+        if not diff.any():
+            continue
+        bi, ri, ki = diff.nonzero(as_tuple=True)
+        xi = x[bi, ri]
+        xa, xb = x[bi, a[bi, ri, ki]], x[bi, b[bi, ri, ki]]
+        da = ((xa - xi) ** 2).sum(-1)
+        db = ((xb - xi) ** 2).sum(-1)
+        scale = (xi * xi).sum(-1) + torch.maximum((xa * xa).sum(-1),
+                                                  (xb * xb).sum(-1))
+        worst = float(((da - db).abs() / scale).max())
+        if worst > TIE:
+            fail(f"{tag}: graph neighbours differ beyond near-ties "
+                 f"(gap {worst:.3g} of |x_i|^2 + |x_j|^2)")
+    return n_diff, n_rows
+
+
+def dgcnn_weights(cfg, seed=SEED, awl=False):
+    """Seeded random GeoMatchDGCNN weights under the reference names (both
+    BN names); the seg head calls every point foreground, as
+    random_weights does for GeoMatch."""
+    from gdm_tpu_torch import weights
+    from gdm_tpu_torch.models.geomatch_dgcnn import GeoMatchDGCNN
+
+    model = GeoMatchDGCNN(cfg.model.feat_dim, awl=awl)
+    weights.init_random_(model, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        model.seg_layer[3].conv.weight.zero_()
+        model.seg_layer[3].conv.bias.copy_(torch.tensor([0.0, 1.0]))
+    return model
+
+
+def dgcnn_cli_run(sim, tag, args):
+    """One ``cli`` run with every batch it fits held against the plain
+    argmax (FitChecks); eval and infer launch the kernel once per batch
+    plus the warm-up.  Returns (result, launches, peak GiB, check ms)."""
+    from gdm_tpu_torch import cli
+
+    torch.cuda.reset_peak_memory_stats()
+    sim.cosine_argmax.launches = 0
+    with FitChecks(sim, tag) as fc:
+        res = cli.main(args)
+    launches = sim.cosine_argmax.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches == 0 or fc.n != launches:
+        fail(f"{tag}: {launches} kernel launches, {fc.n} batches checked")
+    if args[0] != "train" and launches != len(res["timing"]) + 1:
+        fail(f"{tag}: {launches} kernel launches for "
+             f"{len(res['timing'])} batches + the warm-up")
+    return res, launches, peak, fc.check_ms
+
+
+def dgcnn_forward_costs(cfg, root, ckpt, batch):
+    """On one eval batch of ``batch``: the forward's device ms, the three
+    scene graphs' ms in it (each synchronised), and the mesh branch's
+    encode ms (medians of 3 after a warm-up)."""
+    from gdm_tpu_torch import weights
+    from gdm_tpu_torch.cli import get_logger, knn_chunk_for
+    from gdm_tpu_torch.data.dataset import PoseDataset
+    from gdm_tpu_torch.data.loader import collate
+    from gdm_tpu_torch.data.ply import load_or_build_fps_mesh
+    from gdm_tpu_torch.serve import PoseEngine, full_f32
+
+    ds = PoseDataset(cfg, 1, "test", data_root=root)
+    raw, _ = collate([ds[i] for i in range(batch)])
+    raw = {k: raw[k] for k in ("rgb_u8", "dpt_u16", "dpt_scale", "K_crop",
+                               "choose", "det")}
+    fps = load_or_build_fps_mesh(root, 1, cfg.data.model_pt_num)
+    fps[:, :3] *= 1000.0
+    chunk = knn_chunk_for(1024, batch, cfg, get_logger("chip_smoke"))
+    engine = PoseEngine(cfg, fps, weights.read_reference_checkpoint(
+        osp.join(ckpt, "ape")), "cuda", batch=batch, knn_chunk=chunk)
+    fin = engine.finalize(raw)
+    model, x = engine.model, {"cld_rgb_nrm": fin["cld_rgb_nrm"]}
+
+    def forward():
+        return model(x, engine.mesh, mesh_features=engine.mesh_feats,
+                     knn_chunk=chunk)
+
+    def clocked(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad(), full_f32():
+        forward()
+        fwd = float(np.median([clocked(forward) for _ in range(3)]))
+        graphs = []
+        for _ in range(3):
+            with GraphTape(timed=True) as tape:
+                forward()
+            graphs.append(sum(tape.ms))
+        enc = float(np.median([clocked(lambda: model.encode_mesh(
+            engine.mesh)) for _ in range(3)]))
+    graph_ms = float(np.median(graphs))
+    log(f"  DGCNN forward at b={batch} (knn chunk {chunk}): {fwd:.2f} ms; "
+        f"its three scene graphs (exact top-16 of [{batch}, "
+        f"{x['cld_rgb_nrm'].shape[1]}, {x['cld_rgb_nrm'].shape[1]}], "
+        f"each synchronised) {graph_ms:.2f} ms = {graph_ms / fwd:.1%} of "
+        f"the forward; mesh branch encode {enc:.2f} ms (once per object)")
+    del engine, fin, x
+    torch.cuda.empty_cache()
+    return {"forward_ms": fwd, "graph_ms": graph_ms, "encode_ms": enc}
+
+
+def dgcnn_parity(root):
+    """GeoMatchDGCNN on the card against the CPU at full n (4096 points,
+    4096 mesh vertices) and b=2, seeded random weights, dropout off.
+
+    Eval forward: the card's graphs equal beyond near-ties to the CPU's
+    top-k on the same coordinates; the CPU's forward on the card's graphs
+    within DGCNN_TOL (seg, rgbd, mesh; max|d|/max|ref|).  Train step, every run on the graphs the CPU's
+    f32 step built (the function compared stays one): loss within
+    DGCNN_TOL, float64 gradients per tensor within 1e-3, f32 gradients
+    within 8 s_t + 1e-3 of the CPU's float64 ones (step_parity's rule)."""
+    import copy
+
+    from gdm_tpu_torch import configs
+    from gdm_tpu_torch.cli import _fps_mm
+    from gdm_tpu_torch.data.dataset import PoseDataset
+    from gdm_tpu_torch.data.loader import collate
+    from gdm_tpu_torch.data.pipeline import finalize_batch, to_device
+    from gdm_tpu_torch.data.ply import load_or_build_fps_mesh
+    from gdm_tpu_torch.models.build import build_model
+    from gdm_tpu_torch.serve import full_f32
+    from gdm_tpu_torch.train import schedules
+    from gdm_tpu_torch.train.state import create_train_state
+    from gdm_tpu_torch.train.step import BATCH_KEYS, DGCNN_KEYS, \
+        make_train_step
+
+    cfg = configs.get_config("lmo", ["model.backbone=dgcnn"])
+    ds = PoseDataset(cfg, 1, "train", data_root=root)
+    batch, _ = collate([ds[i] for i in range(2)])
+    with torch.no_grad():
+        fin = finalize_batch(to_device(
+            {k: batch[k] for k in BATCH_KEYS + ("origin_labels",)}, "cpu"))
+    inputs = {k: fin[k] for k in DGCNN_KEYS}
+    fps = load_or_build_fps_mesh(root, 1, cfg.data.model_pt_num)
+    mesh_x = build_model(cfg, _fps_mm(fps), "cpu").mesh
+    base = without_dropout(dgcnn_weights(cfg, awl=True))
+
+    def forward(device, tape):
+        m = copy.deepcopy(base).to(device).eval()
+        with tape, torch.no_grad(), full_f32():
+            out = m({"cld_rgb_nrm": inputs["cld_rgb_nrm"].to(device)},
+                    mesh_x.to(device))
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    tape_g, tape_c = GraphTape(), GraphTape()
+    out_g = forward("cuda", tape_g)
+    out_c = forward("cpu", tape_c)
+    n_diff, n_rows = graphs_beyond_near_ties("DGCNN forward, card vs CPU",
+                                             tape_g)
+    own_diff = sum(int((a.cpu() != b).any(-1).sum())
+                   for a, b in zip(tape_g.graphs, tape_c.graphs))
+    out_r = forward("cpu", GraphTape(replay=tape_g.graphs))
+    errs = {k: rel(out_g[k], out_r[k]) for k in ("seg", "rgbd", "mesh")}
+    own = {k: rel(out_g[k], out_c[k]) for k in errs}
+    log(f"  DGCNN eval forward, card vs CPU (b=2, full n): the card's graph "
+        f"rows that differ from the CPU's top-k on the same coordinates "
+        f"{n_diff} of {n_rows}, all near-ties; on the card's graphs "
+        f"max|d|/max|ref| " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                         errs.items())
+        + f" (each device on its own graphs, whose rows differ in {own_diff} "
+        f"of {n_rows} (near-ties of the first graph change the features "
+        "the next two rank): " + ", ".join(
+            f"{k} {v:.3g}" for k, v in own.items()) + ")")
+    if max(errs.values()) > DGCNN_TOL:
+        fail(f"DGCNN forward card vs CPU: {errs} > {DGCNN_TOL}")
+
+    step = make_train_step(schedules.bn_momentum_schedule(), 0.0,
+                           knn_chunk=1024, needs_pyramid=False)
+
+    def run(device, inp, tape, dtype=torch.float32):
+        """One step on ``inp`` (the batch's inputs and "mesh_x")."""
+        model = copy.deepcopy(base).to(device, dtype)
+        state = create_train_state(
+            model, schedules.cyclic_lr(1e-6, 1e-3, 10), 0.0, 5)
+        inp = {k: v.to(device, dtype) if v.is_floating_point()
+               else v.to(device) for k, v in inp.items()}
+        with tape:
+            m = step(state, inp, inp.pop("mesh_x"), SEED)
+        return float(m["loss"]), {k: p.grad.detach().cpu().numpy()
+                                  for k, p in model.named_parameters()}
+
+    inputs["mesh_x"] = mesh_x
+    tape = GraphTape()
+    loss_c, g_cpu = run("cpu", inputs, tape)
+    graphs = [g.clone() for g in tape.graphs]
+
+    def replay():
+        return GraphTape(replay=graphs)
+
+    loss_g, g_gpu = run("cuda", inputs, replay())
+    _, g_64 = run("cpu", inputs, replay(), torch.float64)
+    _, g_gpu64 = run("cuda", inputs, replay(), torch.float64)
+    floor = 1e-6 * max(float(np.abs(g).max()) for g in g_64.values())
+    gen = torch.Generator().manual_seed(SEED)
+    spread = dict.fromkeys(g_gpu, 0.0)
+    for _ in range(4):          # the mesh input moves too
+        moved = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+                 if v.is_floating_point() else v for k, v in inputs.items()}
+        _, g = run("cuda", moved, replay())
+        for k in g_gpu:
+            spread[k] = max(spread[k], rel(g[k], g_gpu[k], floor))
+    dloss = abs(loss_g - loss_c) / abs(loss_c)
+    e64 = {k: rel(g_gpu64[k], g_64[k], floor) for k in g_64}
+    to64 = {k: rel(g_gpu[k], g_64[k], floor) for k in g_64}
+    cpu64 = {k: rel(g_cpu[k], g_64[k], floor) for k in g_64}
+    worse = sorted((to64[k], spread[k], k) for k in to64
+                   if to64[k] > 8 * spread[k] + 1e-3)
+    log(f"  DGCNN train step, card vs CPU (b=2, full n, the CPU's graphs): "
+        f"loss {loss_g:.6f} vs {loss_c:.6f} (|d|/|ref| {dloss:.3g}); float64 "
+        f"gradients worst {max(e64.values()):.3g} over {len(e64)} tensors; "
+        f"f32 to the CPU's float64, median over tensors: card "
+        f"{np.median(list(to64.values())):.3g} (worst "
+        f"{max(to64.values()):.3g}), CPU {np.median(list(cpu64.values())):.3g}"
+        f" (worst {max(cpu64.values()):.3g}); the card's own f32 spread median "
+        f"{np.median(list(spread.values())):.3g}, max "
+        f"{max(spread.values()):.3g}; beyond 8 s_t + 1e-3: {len(worse)}")
+    if dloss > DGCNN_TOL or max(e64.values()) > 1e-3 or worse:
+        fail(f"DGCNN step parity: dloss {dloss:.3g}, float64 worst "
+             f"{max(e64.values()):.3g}, f32 beyond bound {worse[-3:]}")
+    return {"forward_err": errs, "dloss": dloss,
+            "max_err64": max(e64.values())}
+
+
+def dgcnn_step_split(cfg, root, n_steps=10):
+    """n_steps DGCNN train steps on one fixed batch of TRAIN_BATCH: the
+    step split and device-only samples/s (synchronised, the first 3
+    warm up), peak memory."""
+    from gdm_tpu_torch.cli import _fps_mm
+    from gdm_tpu_torch.data.dataset import PoseDataset
+    from gdm_tpu_torch.data.loader import collate
+    from gdm_tpu_torch.data.ply import load_or_build_fps_mesh
+    from gdm_tpu_torch.models.build import build_model
+    from gdm_tpu_torch.train import schedules
+    from gdm_tpu_torch.train.state import create_train_state
+    from gdm_tpu_torch.train.step import make_train_step
+
+    ds = PoseDataset(cfg, 1, "train", data_root=root)
+    batch, _ = collate([ds[i] for i in range(TRAIN_BATCH)])
+    fps = load_or_build_fps_mesh(root, 1, cfg.data.model_pt_num)
+    mesh = build_model(cfg, _fps_mm(fps), "cuda").mesh
+    model = dgcnn_weights(cfg, awl=True).to("cuda")
+    state = create_train_state(model, schedules.cyclic_lr(1e-4, 1e-4, 1),
+                               0.0, 5)
+    step = make_train_step(schedules.bn_momentum_schedule(
+        batch_size=TRAIN_BATCH), 0.0, knn_chunk=1024, needs_pyramid=False)
+    timing, losses = {}, []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(n_steps):
+        t = {} if i >= 3 else None
+        losses.append(float(step(state, batch, mesh, SEED, timing=t)["loss"]))
+        if t is not None:
+            for k, v in t.items():
+                timing[k] = timing.get(k, 0.0) + v
+    split = {k: v / (n_steps - 3) for k, v in timing.items()}
+    total = sum(split.values())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  DGCNN step split at b={TRAIN_BATCH} (mean of steps 4-{n_steps}, "
+        "synchronised): " + ", ".join(f"{k} {v:.2f} ms"
+                                      for k, v in split.items())
+        + f"; total {total:.2f} ms = {TRAIN_BATCH / total * 1e3:.2f} "
+        f"samples/s device-only; peak device memory {peak:.2f} GiB; "
+        f"losses {[round(x, 4) for x in losses]}")
+    if not all(np.isfinite(losses)):
+        fail("DGCNN: non-finite train loss on the fixed batch")
+    return {"split_ms": split, "peak_gib": peak}
+
+
+def dgcnn_phase(sim, eval_dir, train_dir):
+    """The DGCNN backbone (--opt model.backbone=dgcnn) through cli eval |
+    infer | score at b=128 on the eval phase's tree and cli train b=24 on
+    the train phase's, then its costs and card-vs-CPU parity.  Returns
+    the similarity kernel's launches in its CLI runs."""
+    from gdm_tpu_torch import cli
+    from gdm_tpu_torch import weights
+    from gdm_tpu_torch.configs import get_config
+
+    cfg = get_config("lmo", ["model.backbone=dgcnn"])
+    root, out = osp.join(eval_dir, "lmo"), osp.join(eval_dir, "out_dgcnn")
+    ckpt = osp.join(eval_dir, "ckpt_dgcnn")
+    os.makedirs(osp.join(ckpt, "ape"))
+    torch.save({"model_state": weights.reference_state_dict(
+        dgcnn_weights(cfg))}, osp.join(ckpt, "ape", "geomatch.pth.tar"))
+    common = ["--dataset", "lmo", "--data-root", root, "--torch-checkpoint",
+              ckpt, "--cls-id", "1", "--exact-knn", "--num-workers", "8",
+              *DGCNN]
+    res, launches, peak, check_ms = dgcnn_cli_run(
+        sim, "dgcnn eval", ["eval", *common, "--output-dir", out])
+    timing = res["timing"]
+    poses = read_csv_poses(osp.join(out, "gt_lmo-test.csv"))
+    if len(poses) != EVAL_FRAMES:
+        fail(f"dgcnn eval CSV has {len(poses)} rows, want {EVAL_FRAMES}")
+    n_fit = check_poses(np.stack(list(poses.values())), EVAL_FRAMES)
+    log("  dgcnn cli eval b=128: per-batch device ms " + ", ".join(
+        f"{b['device_ms']:.2f} ({b['device_ms'] - c:.2f} without the plain "
+        "check)" for b, c in zip(timing, check_ms[1:]))
+        + f"; peak device memory {peak:.2f} GiB; kernel launches "
+        f"{launches}, each held against the plain argmax; {len(poses)} "
+        f"rows, {n_fit} fitted")
+    infer_csv = osp.join(out, "infer.csv")
+    _, n_inf, _, _ = dgcnn_cli_run(sim, "dgcnn infer", [
+        "infer", *common, "--output", infer_csv])
+    inferred = read_csv_poses(infer_csv)
+    if list(inferred) != list(poses):
+        fail("dgcnn infer CSV rows differ from eval's")
+    dpose = max(float(np.abs(inferred[k] - poses[k]).max()) for k in poses)
+    if dpose > POSE_TOL:
+        fail(f"dgcnn infer poses differ from eval's by {dpose}")
+    scored = cli.main(["score", "--dataset", "lmo", "--data-root", root,
+                       "--cls-id", "1", "--csv",
+                       osp.join(out, "gt_lmo-test.csv"), *DGCNN])
+    if scored["recalls"] != res["recalls"]:
+        fail("dgcnn score of the eval CSV does not reproduce eval's recalls")
+    log(f"  dgcnn cli infer: same rows, max |dpose| {dpose:.3g}, launches "
+        f"{n_inf}; cli score reproduces eval's recalls")
+    launches += n_inf
+
+    troot = osp.join(train_dir, "lmo_train")
+    ckpt_root = osp.join(train_dir, "train_log_dgcnn")
+    t0 = time.perf_counter()
+    res, n_val, peak, _ = dgcnn_cli_run(sim, "dgcnn train validation", [
+        "train", "--dataset", "lmo", "--data-root", troot, "--cls-id", "1",
+        "--batch-size", str(TRAIN_BATCH), "--epochs", "1", "--eval-every",
+        "1", "--ckpt-root", ckpt_root, "--num-workers", "8", *DGCNN])
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line) for line in open(
+        osp.join(ckpt_root, "metrics", "ape.jsonl"))]
+    losses = [r["loss"] for r in rows if "loss" in r]
+    val = res["objects"]["ape"]["val"]
+    steps = res["timing"]
+    if not losses or not all(np.isfinite(losses)) or val is None \
+            or val["val_frames"] != VAL_FRAMES:
+        fail(f"dgcnn train: losses {losses}, validation {val}")
+    log(f"  dgcnn cli train b={TRAIN_BATCH}, 1 epoch: {len(steps)} steps in "
+        f"{wall:.2f} s end to end (validation and its plain checks "
+        f"included); step ms " + ", ".join(f"{r['step_ms']:.2f}"
+                                          for r in steps)
+        + f"; peak device memory {peak:.2f} GiB; losses {losses}; "
+        f"validation {val}; kernel launches {n_val}")
+    res, n_ev, _, _ = dgcnn_cli_run(sim, "dgcnn eval of the trained "
+                                     "checkpoint", [
+        "eval", "--dataset", "lmo", "--data-root", troot,
+        "--torch-checkpoint", osp.join(ckpt_root, "checkpoints"),
+        "--cls-id", "1", "--exact-knn", "--batch-size", str(TRAIN_BATCH),
+        "--output-dir", osp.join(train_dir, "dgcnn_eval"), *DGCNN])
+    log(f"  dgcnn cli eval of the trained checkpoint: ADD(-S) AUC "
+        f"{res['auc']['ape']:.4f}, kernel launches {n_ev}")
+    launches += n_val + n_ev
+    dgcnn_forward_costs(cfg, root, ckpt, 128)
+    dgcnn_step_split(cfg, troot)
+    dgcnn_parity(troot)
+    return launches
+
+
 YCBV_TEST = {oid: 8 if oid == 1 else 6 for oid in range(1, 22)}   # 128
 YCBV_TRAIN_FRAMES, YCBV_TRAIN_BATCH, YCBV_SYM = 12, 8, 13   # 024_bowl
 FINALIZE_TOL = 1e-4      # |card - CPU| of finalize_batch(fill_depth=True)
@@ -2106,18 +2539,21 @@ def main() -> int:
     phase("serving")
     launches_serve = slice_phase(sim)
     phase("eval")
-    with tempfile.TemporaryDirectory() as workdir:
-        launches_eval, eval_timing = eval_phase(sim, workdir)
+    # the dgcnn phase runs on the eval and train phases' trees
+    with tempfile.TemporaryDirectory() as eval_dir, \
+            tempfile.TemporaryDirectory() as train_dir:
+        launches_eval, eval_timing = eval_phase(sim, eval_dir)
         phase("refine")
-        launches_refine, _ = refine_phase(sim, workdir, eval_timing)
+        launches_refine, _ = refine_phase(sim, eval_dir, eval_timing)
         phase("vsd")
-        launches_vsd, vsd_timing = vsd_phase(sim, workdir, eval_timing)
-    phase("stacked")
-    with tempfile.TemporaryDirectory() as workdir:
-        launches_stacked, _ = stacked_phase(sim, workdir)
-    phase("train")
-    with tempfile.TemporaryDirectory() as workdir:
-        launches_train, _ = train_phase(sim, workdir)
+        launches_vsd, vsd_timing = vsd_phase(sim, eval_dir, eval_timing)
+        phase("stacked")
+        with tempfile.TemporaryDirectory() as workdir:
+            launches_stacked, _ = stacked_phase(sim, workdir)
+        phase("train")
+        launches_train, _ = train_phase(sim, train_dir)
+        phase("dgcnn")
+        launches_dgcnn = dgcnn_phase(sim, eval_dir, train_dir)
     phase("ycbv")
     with tempfile.TemporaryDirectory() as workdir:
         launches_ycbv = ycbv_phase(sim, workdir)
@@ -2133,7 +2569,8 @@ def main() -> int:
         "replaces": "gdm_tpu/ops/pallas/similarity.py:89",
         "launches": (launches_eval + launches_serve + launches_train
                      + launches_refine + launches_stacked
-                     + launches_vsd["cosine_argmax"] + launches_ycbv),
+                     + launches_vsd["cosine_argmax"] + launches_ycbv
+                     + launches_dgcnn),
         "launches_eval": launches_eval,
         "launches_serve": launches_serve,
         "launches_train": launches_train,
@@ -2141,6 +2578,7 @@ def main() -> int:
         "launches_stacked": launches_stacked,
         "launches_vsd": launches_vsd["cosine_argmax"],
         "launches_ycbv": launches_ycbv,
+        "launches_dgcnn": launches_dgcnn,
         "max_abs_err": err,
         "ms": at["eval"]["ms"],
         "plain_ms": at["eval"]["plain_ms"],

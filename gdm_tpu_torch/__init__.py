@@ -7,7 +7,8 @@ counterpart module by module and imports ``torch``, never ``jax`` or
     data/pipeline   finalize_batch (colour, backprojection, normals,
                     point gather), build_pyramid (exact KNN index pyramid)
     models/         GeoMatch at eval: ResNet18/PSPNet + RandLA fused by
-                    FFB6D, SplineCNN mesh encoder, heads
+                    FFB6D, SplineCNN mesh encoder, heads; GeoMatchDGCNN
+                    (edge-conv trunks); build (the configured one)
     ops/            similarity (CUDA kernel, csrc/similarity.cu), knn,
                     kabsch, backproject, normals, spline_basis
     eval/           pose_fit (seg mask -> similarity argmax -> Kabsch),

@@ -40,19 +40,23 @@ frames round-robin, so that every batch mixes objects, and sends each
 row to its object's model (eval/multimodel.MultiObjectEngine) with that
 object's ICP gate.
 
-The model is built as the JAX CLI builds it: the widths of the
-reference (``--opt`` values of ``model.randla_d_out``,
-``model.spline_kernel`` and ``model.mesh_knn_k`` other than their
-defaults, or a ``model.n_mesh_node`` other than ``data.model_pt_num``,
-are refused: the JAX CLI ignores them), and the mesh graph of
-``data.model_pt_num`` vertices.  With ``data.fill_depth`` (YCB-V) the
-loader's depth-filled crop goes to the device beside the counts.
+The model is built as the JAX CLI builds it (models/build.build_model):
+``--opt model.backbone=dgcnn`` gives GeoMatchDGCNN (config 5: no KNN
+pyramid, the mesh as its node features in metres), the default
+GeoMatch; the widths of the reference (``--opt`` values of
+``model.randla_d_out``, ``model.spline_kernel`` and ``model.mesh_knn_k``
+other than their defaults, or a ``model.n_mesh_node`` other than
+``data.model_pt_num``, are refused: the JAX CLI ignores them), and the
+mesh of ``data.model_pt_num`` vertices.  With ``data.fill_depth``
+(YCB-V) the loader's depth-filled crop goes to the device beside the
+counts.
 
-The KNN pyramid is exact: it is the port's only mode.  What the JAX CLI
-offers and the port does not yet (``--save-viz``,
-``--model-shards``, and for ``train`` also ``--pretrained-backbone``,
-``--multihost`` and ``--devices`` > 1) raises, naming the ROADMAP queue 1
-item that brings it.
+The KNN pyramid and the DGCNN graphs are exact: it is the port's only
+mode.  What the JAX CLI offers and the port does not yet
+(``--save-viz``, ``--model-shards``, and for ``train`` also
+``--pretrained-backbone``, ``--multihost`` and ``--devices`` > 1)
+raises, naming the ROADMAP queue 1 item that brings it; ``infer
+--stacked`` needs the randla_spline backbone, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -111,7 +115,18 @@ def _refuse_unported(args, log):
         raise NotImplementedError(
             "--devices > 1: data-parallel training (ROADMAP queue 1 item "
             "9) is not ported")
-    if not getattr(args, "exact_knn", True):
+
+
+def _log_exact_knn(args, cfg, log):
+    """Say where the JAX CLI would build approximate neighbours and the
+    port builds exact ones: the pyramid without --exact-knn, DGCNN's
+    graphs without --exact-knn or model.dgcnn_exact_knn (train too)."""
+    exact = getattr(args, "exact_knn", None)
+    if cfg.model.backbone == "dgcnn":
+        if not (exact or cfg.model.dgcnn_exact_knn):
+            log.info("approximate edge-conv graphs are not ported: the "
+                     "DGCNN graphs are exact (as with --exact-knn)")
+    elif exact is False:
         log.info("approximate KNN is not ported: the pyramid is exact "
                  "(as with --exact-knn)")
 
@@ -142,12 +157,14 @@ def model_config(dataset: str, opts):
 
 def knn_chunk_for(requested: int, batch: int, cfg, log) -> int:
     """The KNN query chunk for an engine of ``batch``: ``requested``,
-    lowered until the largest distance block of the pyramid (batch x
-    chunk x support points, the support being the stride-2 CNN grid or
-    the scene points) holds at most KNN_BLOCK_ELEMS entries.  The chunk
-    bounds peak memory and changes no result."""
-    support = max((cfg.data.input_size // 2) ** 2,
-                  cfg.data.num_sample_points)
+    lowered until the largest distance block (batch x chunk x support
+    points) holds at most KNN_BLOCK_ELEMS entries.  The support is the
+    pyramid's stride-2 CNN grid or its scene points, or for DGCNN the
+    scene points its graphs range over.  The chunk bounds peak memory and
+    changes no result."""
+    support = cfg.data.num_sample_points
+    if cfg.model.backbone != "dgcnn":
+        support = max((cfg.data.input_size // 2) ** 2, support)
     fit = max(1, KNN_BLOCK_ELEMS // (batch * support))
     if fit >= requested:
         return requested
@@ -248,19 +265,24 @@ def _icp_gate(args, cfg, diameter_m):
     return cfg.data.nn_dist_th * diameter_m
 
 
+def _fps_mm(mesh_fps):
+    """The fps array of ``load_or_build_fps_mesh`` (xyz in metres) in the
+    obj_XXXXXX_fps.npy layout that build_model takes (xyz in mm)."""
+    return np.concatenate([mesh_fps[:, :3] * 1000.0, mesh_fps[:, 3:]],
+                          axis=1)
+
+
 def _object_engine(cfg, args, obj_name, mesh_fps, device, batch, log,
                    icp_reject=0.01):
     """The PoseEngine of one object: its reference checkpoint, its mesh
-    graph (from the fps layout, xyz in mm), the eval batch, --refine and
-    the object's ICP gate."""
+    (``mesh_fps`` in metres), the eval batch, --refine and the object's
+    ICP gate."""
     from gdm_tpu_torch import weights
     from gdm_tpu_torch.serve import PoseEngine
 
     state = weights.read_reference_checkpoint(
         osp.join(args.torch_checkpoint, obj_name))
-    fps_mm = np.concatenate([mesh_fps[:, :3] * 1000.0, mesh_fps[:, 3:]],
-                            axis=1)
-    return PoseEngine(cfg, fps_mm, state, device, batch=batch,
+    return PoseEngine(cfg, _fps_mm(mesh_fps), state, device, batch=batch,
                       knn_chunk=knn_chunk_for(args.knn_chunk, batch, cfg,
                                               log),
                       refine=args.refine, icp_reject=icp_reject)
@@ -327,6 +349,7 @@ def evaluate(args):
     _refuse_unported(args, log)
     device = _device(args)
     cfg = model_config(args.dataset, args.opt)
+    _log_exact_knn(args, cfg, log)
     refd = refdata.get(args.dataset)
     batch_size = args.batch_size or cfg.solver.val_batch_size
     cls_ids = [args.cls_id] if args.cls_id else list(cfg.data.obj_ids)
@@ -452,6 +475,9 @@ def infer(args):
     _refuse_unported(args, log)
     device = _device(args)
     cfg = model_config(args.dataset, args.opt)
+    if args.stacked and cfg.model.backbone != "randla_spline":
+        raise SystemExit("--stacked requires the randla_spline backbone")
+    _log_exact_knn(args, cfg, log)
     refd = refdata.get(args.dataset)
     batch_size = args.batch_size or cfg.solver.val_batch_size
     cls_ids = [args.cls_id] if args.cls_id else list(cfg.data.obj_ids)
@@ -590,22 +616,17 @@ def score(args):
     return results
 
 
-def _object_mesh_graph(cfg, refd, cls_id, obj_name, mesh_fps, data_root):
-    """The object's mesh graph (from the fps layout, xyz in mm), with the
-    symmetry table of a symmetric object (gdm_tpu/cli.py
-    _build_object_setup)."""
-    from gdm_tpu_torch.models.spline_mesh import build_mesh_graph
+def _sym_transform(cfg, refd, cls_id, obj_name, data_root):
+    """The discrete symmetry (R, t_mm) of a symmetric object, whose table
+    the flagship's mesh graph carries (gdm_tpu/cli.py
+    _build_object_setup), or None."""
     from gdm_tpu_torch.refdata._base import symmetry_transform
 
-    sym = None
     if obj_name in cfg.data.sym_objs:
         info = _models_info(refd, data_root)
         if str(cls_id) in info:
-            sym = symmetry_transform(info[str(cls_id)])
-    fps_mm = np.concatenate([mesh_fps[:, :3] * 1000.0, mesh_fps[:, 3:]],
-                            axis=1)
-    return build_mesh_graph(fps_mm, cfg.data.model_pt_num,
-                            sym_transform=sym)
+            return symmetry_transform(info[str(cls_id)])
+    return None
 
 
 class _ValContext:
@@ -653,10 +674,9 @@ class _ValContext:
             return None
         sd = weights.reference_state_dict(model)
         if self.engine is None:
-            fps_mm = np.concatenate([self.mesh_fps[:, :3] * 1000.0,
-                                     self.mesh_fps[:, 3:]], axis=1)
             self.engine = PoseEngine(
-                self.cfg, fps_mm, sd, self.device, batch=self.bs,
+                self.cfg, _fps_mm(self.mesh_fps), sd, self.device,
+                batch=self.bs,
                 knn_chunk=knn_chunk_for(self.args.knn_chunk, self.bs,
                                         self.cfg, self.log))
         else:
@@ -688,7 +708,7 @@ def train(args):
     from gdm_tpu_torch import refdata, weights
     from gdm_tpu_torch.data.dataset import PoseDataset
     from gdm_tpu_torch.data.loader import DataLoader
-    from gdm_tpu_torch.models.geomatch import GeoMatch, MeshArrays
+    from gdm_tpu_torch.models.build import build_model
     from gdm_tpu_torch.train.checkpoint import load_checkpoint, \
         save_checkpoint
     from gdm_tpu_torch.train.schedules import bn_momentum_schedule, \
@@ -701,6 +721,7 @@ def train(args):
     _refuse_unported(args, log)
     device = _device(args)
     cfg = model_config(args.dataset, args.opt)
+    _log_exact_knn(args, cfg, log)
     refd = refdata.get(args.dataset)
     sol = cfg.solver
     epochs = args.epochs or sol.total_epochs
@@ -719,8 +740,6 @@ def train(args):
         mesh_fps = _object_mesh(cfg, cls_id, args.data_root)
         log.info("object %s (id %d), diameter %.3f m", obj_name, cls_id,
                  diameter_m)
-        mesh = MeshArrays.from_graph(_object_mesh_graph(
-            cfg, refd, cls_id, obj_name, mesh_fps, args.data_root), device)
 
         ds = PoseDataset(cfg, cls_id, "train", mesh_fps=mesh_fps,
                          data_root=args.data_root,
@@ -739,8 +758,10 @@ def train(args):
             lr = cyclic_lr(sol.base_lr, sol.max_lr,
                            max(epochs * len(dl) // sol.clr_div, 1))
 
-        model = GeoMatch(cfg.model.feat_dim, tuple(cfg.model.randla_d_out),
-                         spline_kernel=cfg.model.spline_kernel, awl=True)
+        model, mesh, _, needs_pyramid = build_model(
+            cfg, _fps_mm(mesh_fps), device, awl=True,
+            sym_transform=_sym_transform(cfg, refd, cls_id, obj_name,
+                                         args.data_root))
         weights.init_random_(model, torch.Generator().manual_seed(
             args.seed + cls_id))
         model.to(device)
@@ -748,7 +769,7 @@ def train(args):
                                    sol.skip_nonfinite)
         positive_r = cfg.model.neighbor_dis_th * diameter_m
         train_step = make_train_step(bnm, positive_r, args.knn_chunk,
-                                     cfg.data.fill_depth)
+                                     cfg.data.fill_depth, needs_pyramid)
 
         ckpt_dir = osp.join(args.ckpt_root, "checkpoints", obj_name)
         start_epoch = 0
@@ -864,7 +885,8 @@ def build_parser():
         sp.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu on request)")
         sp.add_argument("--exact-knn", action="store_true",
-                        help="exact KNN pyramid (the port's only mode)")
+                        help="exact KNN pyramid and DGCNN graphs (the "
+                             "port's only mode)")
         sp.add_argument("--refine", choices=["ransac", "icp", "meanshift"],
                         default=None, help="refine each fitted pose")
         sp.add_argument("--icp-reject", type=float, default=None,

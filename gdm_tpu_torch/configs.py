@@ -4,9 +4,10 @@ Counterpart of gdm_tpu/configs/base.py for the fields that inference,
 training, the BOP loader and the CLI read, in the same ``config.data.*``
 / ``config.model.*`` / ``config.solver.*`` layout and with the same
 preset values (reference config/lmo_cfg.py, lmfull_cfg.py,
-ycbv_cfg.py).  The backbone choice (``model.backbone``: only the
-flagship ``randla_spline``), bf16 compute and the pretrained-backbone
-path are not ported (ROADMAP queue 1 items 4, 11f, 11d).
+ycbv_cfg.py).  ``model.backbone`` picks the flagship ``randla_spline``
+or ``dgcnn`` (config 5); any other name raises.  bf16 compute and the
+pretrained-backbone path are not ported (ROADMAP queue 1 items 11f,
+11d).
 """
 
 from __future__ import annotations
@@ -42,14 +43,20 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """MODEL block (config/lmo_cfg.py:123-133), GeoMatch randla_spline."""
+    """MODEL block (config/lmo_cfg.py:123-133)."""
 
     feat_dim: int = 128
     n_mesh_node: int = 4096
     neighbor_dis_th: float = 0.02   # x diameter: circle-loss positive radius
+    backbone: str = "randla_spline"  # or "dgcnn"
     randla_d_out: Sequence[int] = (32, 64, 128, 256)
     mesh_knn_k: int = 4
     spline_kernel: int = 5
+    dgcnn_exact_knn: bool = False   # the JAX package's switch to exact
+    # edge-conv graphs; the port's graphs are always exact
+
+
+BACKBONES = ("randla_spline", "dgcnn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,12 +168,9 @@ def get_config(name: str, opts: Sequence[str] = ()) -> Config:
         section, _, field = path.partition(".")
         if not field:
             raise ValueError(f"--opt key must be section.field: {opt!r}")
-        if path == "model.backbone":
-            if raw != "randla_spline":
-                raise NotImplementedError(
-                    f"--opt model.backbone={raw}: only the randla_spline "
-                    "backbone is ported (DGCNN is ROADMAP queue 1 item 4)")
-            continue
+        if path == "model.backbone" and raw not in BACKBONES:
+            raise ValueError(f"--opt model.backbone={raw}: the backbones "
+                             f"are {', '.join(BACKBONES)}")
         sub = getattr(cfg, section)
         val = _parse_value(path, getattr(sub, field), raw)
         cfg = dataclasses.replace(

@@ -5,10 +5,12 @@ from gdm_tpu_torch.losses.circle import circle_loss, masked_logsumexp
 from gdm_tpu_torch.losses.focal import focal_loss
 from gdm_tpu_torch.losses.matching import (
     matching_positive_mask,
+    matching_positive_mask_depth_scaled,
     matching_positive_mask_sym,
     pointwise_matching_loss,
 )
 
 __all__ = ["AutomaticWeightedLoss", "circle_loss", "focal_loss",
            "masked_logsumexp", "matching_positive_mask",
+           "matching_positive_mask_depth_scaled",
            "matching_positive_mask_sym", "pointwise_matching_loss"]

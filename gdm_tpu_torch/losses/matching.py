@@ -15,8 +15,10 @@ and rows outside the foreground are masked:
   * ``batch_chunk`` elements are scored at a time, bounding the
     [chunk, N, M+1] temporaries.
 
-The DGCNN variant's depth-scaled radius and one-hot padding column come
-with the DGCNN slice (ROADMAP queue 1 item 4).
+The DGCNN variant (geoMatch_DGCNN.py:62-65,95-98) takes the padding
+column as the one-hot e0 (``pad_onehot``) and a depth-scaled radius: mesh
+column j is positive within ``r_mm / 1000 * z_j`` of the GT match, z_j
+the camera depth of vertex j under the element's GT pose.
 """
 
 from __future__ import annotations
@@ -53,6 +55,27 @@ def matching_positive_mask(match_idx: torch.Tensor, mesh_xyz: torch.Tensor,
     return torch.cat([pos, ~in_mesh[..., None]], dim=-1)
 
 
+def matching_positive_mask_depth_scaled(match_idx: torch.Tensor,
+                                        mesh_xyz: torch.Tensor,
+                                        vis_flag: torch.Tensor,
+                                        rt: torch.Tensor,
+                                        r_mm: float) -> torch.Tensor:
+    """:func:`matching_positive_mask` with the radius of mesh column j
+    ``r_mm / 1000 * z_j``, z_j = R[2] . xyz_j + t_z under the GT pose
+    ``rt`` [B, 3, 4] (geoMatch_DGCNN.py:62-65)."""
+    n_mesh = mesh_xyz.shape[0]
+    in_mesh = match_idx != n_mesh
+    safe = torch.clamp(match_idx, 0, n_mesh - 1).long()
+    gt_pt = mesh_xyz[safe]                                   # [B, n, 3]
+    d2 = pairwise_sqdist(gt_pt, mesh_xyz.expand(gt_pt.shape[0], -1, -1))
+    z = torch.matmul(mesh_xyz, rt[:, 2, :3, None])[..., 0] \
+        + rt[:, 2, 3:4]                                       # [B, m]
+    radius = (r_mm / 1000.0) * z
+    pos = (d2 < torch.square(radius)[:, None, :]) \
+        & (vis_flag > 0)[:, None, :] & in_mesh[..., None]
+    return torch.cat([pos, ~in_mesh[..., None]], dim=-1)
+
+
 def matching_positive_mask_sym(match_idx: torch.Tensor,
                                sym_idx: torch.Tensor,
                                n_mesh: int) -> torch.Tensor:
@@ -80,6 +103,9 @@ def pointwise_matching_loss(
     sym_idx: torch.Tensor | None = None,
     m: float = 0.2,
     gamma: float = 16.0,
+    pad_onehot: bool = False,
+    rt: torch.Tensor | None = None,
+    depth_scaled_r_mm: float | None = None,
     batch_chunk: int | None = None,
 ) -> torch.Tensor:
     """Batch matching loss (pointwise_feature_matching parity).
@@ -93,12 +119,19 @@ def pointwise_matching_loss(
       visible_flag: [B, M] per-element vertex visibility.
       positive_r: neighbor_dis_th * diameter_m (geoMatch.py:24).
       sym_idx: optional [M] symmetry table (geoMatch.py:138-141).
+      pad_onehot: the padding column e0 instead of -1s.
+      rt, depth_scaled_r_mm: [B, 3, 4] GT poses and the radius in mm per
+        metre of depth: the depth-scaled mask in place of ``positive_r``.
       batch_chunk: elements scored at once (None = the whole batch).
     Returns:
       scalar: mean over valid elements of per-element row means.
     """
     n_mesh = mesh_features.shape[0]
-    pad = -torch.ones_like(mesh_features[:1])
+    if pad_onehot:
+        pad = torch.zeros_like(mesh_features[:1])
+        pad[0, 0] = 1.0
+    else:
+        pad = -torch.ones_like(mesh_features[:1])
     mesh_padded = torch.cat([mesh_features, pad], dim=0)
     mesh_padded = mesh_padded / torch.clamp_min(
         torch.linalg.vector_norm(mesh_padded, dim=1, keepdim=True), 1e-12)
@@ -114,6 +147,10 @@ def pointwise_matching_loss(
         sim = torch.matmul(f, mesh_padded.T)                  # [c, N, M+1]
         if sym_idx is not None:
             pos = matching_positive_mask_sym(midx, sym_idx, n_mesh)
+        elif depth_scaled_r_mm is not None:
+            pos = matching_positive_mask_depth_scaled(
+                midx, mesh_xyz, visible_flag[s:s + chunk], rt[s:s + chunk],
+                depth_scaled_r_mm)
         else:
             pos = matching_positive_mask(midx, mesh_xyz,
                                          visible_flag[s:s + chunk],

@@ -5,8 +5,10 @@ Counterpart of gdm_tpu/serve.py's ServingArtifact: the same ``meta``
 ``finalize``, ``infer`` and ``run(raw) -> numpy poses [B, 3, 4]``, so it
 plugs into gdm_tpu_torch.server.PoseService (and, unchanged, into the JAX
 package's).  Where the JAX artifact bakes a traced program, the engine
-holds the model, the object's mesh graph and its mesh features, encoded
-once at construction.
+holds the model that ``config.model.backbone`` names
+(models/build.build_model), the object's mesh input (the flagship's
+SplineCNN graph, or DGCNN's node features in metres) and its mesh
+features, encoded once at construction.
 
 The configuration computes in f32.  cuDNN allows TF32 convolutions by
 default, so the engine turns TF32 off for matmuls and convolutions around
@@ -23,8 +25,7 @@ import torch
 from gdm_tpu_torch import weights
 from gdm_tpu_torch.data.pipeline import finalize_batch, to_device
 from gdm_tpu_torch.eval.infer import run_inference
-from gdm_tpu_torch.models.geomatch import GeoMatch, MeshArrays
-from gdm_tpu_torch.models.spline_mesh import build_mesh_graph
+from gdm_tpu_torch.models.build import build_model
 
 
 @contextlib.contextmanager
@@ -62,41 +63,38 @@ def raw_input_spec(batch: int, im_size: int, n_sample: int,
 
 
 class PoseEngine:
-    """GeoMatch inference for one object on one device.
+    """GeoMatch (or GeoMatchDGCNN) inference for one object on one
+    device.
 
     Args:
-      config: shapes, model widths and ``data.fill_depth`` (the requests
-        carry the depth-filled crop, whose normals the model reads)
-        (gdm_tpu_torch.configs.Config).
-      mesh_fps: [m, 9] object array (xyz mm | rgb | normal).
+      config: shapes, backbone, model widths and ``data.fill_depth`` (the
+        requests carry the depth-filled crop, whose normals the model
+        reads) (gdm_tpu_torch.configs.Config).
+      mesh_fps_mm: [m, 9] object array, xyz in **millimetres** | rgb |
+        normal (the fps.npy layout; build_model refuses metres).
       state_dict: reference-named weights (numpy or tensors).
       device: torch device; "cuda" raises when CUDA is absent.
       batch: the served batch; PoseService pads shorter requests to it.
-      knn_chunk: queries per distance block of the KNN pyramid (peak
-        memory; no result changes with it).
+      knn_chunk: queries per distance block of the KNN pyramid or the
+        DGCNN graphs (peak memory; no result changes with it).
       refine: None | 'ransac' | 'icp' | 'meanshift' (eval/pose_fit).
       icp_reject: the ICP correspondence gate in metres.
     """
 
-    def __init__(self, config, mesh_fps: np.ndarray, state_dict: dict,
+    def __init__(self, config, mesh_fps_mm: np.ndarray, state_dict: dict,
                  device, batch: int, knn_chunk: int = 1024,
                  refine: str | None = None, icp_reject: float = 0.01):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} asked for, but CUDA is "
                                "not available")
-        m = config.model
-        self.model = GeoMatch(m.feat_dim, tuple(m.randla_d_out),
-                              spline_kernel=m.spline_kernel)
+        self.model, self.mesh, self.mesh_xyz, self.needs_pyramid = \
+            build_model(config, mesh_fps_mm, self.device)
         weights.load_reference_state_dict(self.model, state_dict)
         self.model.to(self.device).eval()
         self.knn_chunk = knn_chunk
         self.fill_depth = bool(config.data.fill_depth)
         self.refine, self.icp_reject = refine, float(icp_reject)
-        graph = build_mesh_graph(mesh_fps, m.n_mesh_node,
-                                 kernel_size=m.spline_kernel,
-                                 k=m.mesh_knn_k)
-        self.mesh = MeshArrays.from_graph(graph, self.device)
         self._encode_mesh()
         self.meta = {
             "raw_spec": raw_input_spec(batch, config.data.input_size,
@@ -134,8 +132,9 @@ class PoseEngine:
         """Finalized batch -> poses [B, 3, 4] on the device."""
         with full_f32():
             poses, self.last_fit = run_inference(
-                self.model, fin, self.mesh, self.mesh_feats, self.knn_chunk,
-                self.refine, self.icp_reject)
+                self.model, fin, self.mesh, self.mesh_xyz, self.mesh_feats,
+                self.needs_pyramid, self.knn_chunk, self.refine,
+                self.icp_reject)
         return poses
 
     def run(self, raw: dict) -> np.ndarray:

@@ -10,6 +10,10 @@ layouts need care:
     reference dicts hold its tensors under ``cnn_up_stages.2.0.0.*`` and
     ``cnn_up_stages.3.1.0.*``; the port registers it once, at 2.0.0, and
     takes the duplicate only when the first name is missing;
+  * the DGCNN variant registers each edge conv's BN twice, as ``bnN`` and
+    inside ``convN`` (dgcnn.py:67-100), so reference dicts hold it under
+    ``{pcd_emb,model_emb}.bnN.*`` and ``.convN.1.*``; the port registers
+    ``convN.1`` and folds ``bnN`` the same way;
   * point convs of torch checkpoints are stored as [out, in, 1] or
     [out, in, 1, 1]; the port's [out, in] takes them with their trailing
     unit dimensions dropped.  Any other shape difference raises, so a
@@ -39,6 +43,11 @@ ALIASES = {
     "pcd_emb.cnn_up_stages.3.1.0.weight": "pcd_emb.cnn_up_stages.2.0.0.weight",
     "pcd_emb.cnn_up_stages.3.1.0.bias": "pcd_emb.cnn_up_stages.2.0.0.bias",
 }
+ALIASES.update({
+    f"{root}.bn{n}.{leaf}": f"{root}.conv{n}.1.{leaf}"
+    for root in ("pcd_emb", "model_emb") for n in range(1, 9)
+    for leaf in ("weight", "bias", "running_mean", "running_var",
+                 "num_batches_tracked")})
 # entries of a training checkpoint that an eval model does not hold
 TRAIN_ONLY = ("awl.params",)
 
@@ -70,8 +79,8 @@ def load_reference_state_dict(module: nn.Module, state: dict) -> None:
 
 def to_port_names(module: nn.Module, state: dict) -> dict:
     """A reference-named dict (numpy or tensors) as tensors under the
-    names and shapes of ``module.state_dict()``: the duplicate
-    ``cnn.final`` names folded, point-conv unit dimensions dropped,
+    names and shapes of ``module.state_dict()``: the duplicate names
+    folded, point-conv unit dimensions dropped,
     training-only entries dropped when ``module`` lacks them."""
     own = module.state_dict()
     out = {}
@@ -94,8 +103,8 @@ def to_port_names(module: nn.Module, state: dict) -> dict:
 
 def reference_state_dict(module: nn.Module) -> dict:
     """``module``'s state dict (CPU tensors) under the reference names,
-    the shared ``cnn.final`` under both of its names, as the reference's
-    own checkpoints hold it."""
+    each shared module (``cnn.final``, DGCNN's ``bnN``) under both of its
+    names, as the reference's own checkpoints hold it."""
     sd = {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
     for dup, name in ALIASES.items():
         if name in sd:

@@ -2,7 +2,11 @@
 (|d|/|ref| <= 1e-5) and gradients (max|d|/max|ref| <= 1e-4) from
 jax.value_and_grad and torch autograd on the same seeded numpy inputs,
 including an empty positive mask, an element with fewer than 3
-foreground rows, the symmetric mask and a chunked batch."""
+foreground rows, the symmetric mask, a chunked batch and the DGCNN
+variant (one-hot padding column, depth-scaled radius).  The depth-scaled
+mask is held equal to JAX's except where a squared distance lies within
+4 f32 ulps of the terms that the radius test compares (the two packages
+sum the small matmul of the depth in their own order)."""
 
 import numpy as np
 import pytest
@@ -108,8 +112,20 @@ def _matching_problem(seed, b=4, n=96, m=40, c=16):
     return feats, mesh_f, mesh_xyz, labels, match, vis, sym
 
 
+def _gt_poses(seed, b=4):
+    """[b, 3, 4] f32 poses: random rotations, the object 0.4-0.6 m in
+    front of the camera."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.RandomState(seed)
+    R = Rotation.random(b, random_state=seed).as_matrix()
+    t = np.stack([rng.uniform(-0.05, 0.05, b), rng.uniform(-0.05, 0.05, b),
+                  rng.uniform(0.4, 0.6, b)], axis=1)
+    return np.concatenate([R, t[:, :, None]], axis=2).astype(np.float32)
+
+
 @pytest.mark.parametrize("variant", ["plain", "sym", "chunked",
-                                     "sym_chunked"])
+                                     "sym_chunked", "depth_scaled"])
 def test_pointwise_matching_loss(variant):
     from gdm_tpu.losses import pointwise_matching_loss
 
@@ -117,17 +133,25 @@ def test_pointwise_matching_loss(variant):
     use_sym = sym if "sym" in variant else None
     chunk = 2 if "chunked" in variant else None
     r = 0.02
+    # the DGCNN variant (geomatch_dgcnn.py:96-104): e0 padding column,
+    # radius 3 mm per metre of depth under the GT poses
+    dgcnn = {}
+    if variant == "depth_scaled":
+        dgcnn = {"pad_onehot": True, "rt": _gt_poses(3),
+                 "depth_scaled_r_mm": 3.0}
     vj, gj = _jax_value_and_grad(
         lambda f, mf: pointwise_matching_loss(
             f, mf, mesh_xyz, labels, match, vis, r, sym_idx=use_sym,
-            batch_chunk=chunk), feats, mesh_f, argnums=(0, 1))
+            batch_chunk=chunk, **dgcnn), feats, mesh_f, argnums=(0, 1))
+    if dgcnn:
+        dgcnn["rt"] = torch.from_numpy(dgcnn["rt"])
 
     def port(f, mf):
         return L.pointwise_matching_loss(
             f, mf, torch.from_numpy(mesh_xyz), torch.from_numpy(labels),
             torch.from_numpy(match).long(), torch.from_numpy(vis), r,
             sym_idx=None if use_sym is None else torch.from_numpy(use_sym),
-            batch_chunk=chunk)
+            batch_chunk=chunk, **dgcnn)
 
     vt, gt = _torch_value_and_grad(port, feats, mesh_f, argnums=(0, 1))
     _check(vj, gj, vt, gt)
@@ -139,6 +163,7 @@ def test_positive_masks_equal():
 
     from gdm_tpu.losses.matching import (
         matching_positive_mask,
+        matching_positive_mask_depth_scaled,
         matching_positive_mask_sym,
     )
 
@@ -156,6 +181,25 @@ def test_positive_masks_equal():
     got = L.matching_positive_mask_sym(torch.from_numpy(match).long(),
                                        torch.from_numpy(sym), m).numpy()
     np.testing.assert_array_equal(got, want)
+    # depth-scaled (DGCNN): 40 mm per metre, so that each row has several
+    # positives; equal but within 4 f32 ulps of the radius test's terms
+    rt = _gt_poses(4)
+    want = np.asarray(jax.vmap(
+        lambda mi, v, p: matching_positive_mask_depth_scaled(
+            mi, mesh_xyz, v, p, 40.0))(match, vis, rt))
+    got = L.matching_positive_mask_depth_scaled(
+        torch.from_numpy(match).long(), torch.from_numpy(mesh_xyz),
+        torch.from_numpy(vis), torch.from_numpy(rt), 40.0).numpy()
+    x = mesh_xyz.astype(np.float64)
+    gt = x[np.clip(match, 0, m - 1)]                      # [b, n, 3]
+    d2 = ((gt[:, :, None] - x[None, None]) ** 2).sum(-1)
+    r2 = np.square(0.04 * (np.einsum("mk,bk->bm", x, rt[:, 2, :3])
+                           + rt[:, 2, 3:4]))[:, None, :]
+    n2 = (gt ** 2).sum(-1)[..., None] + (x ** 2).sum(-1)
+    edge = np.abs(d2 - r2) <= 4 * np.finfo(np.float32).eps * (n2 + r2)
+    assert edge.mean() < 0.01 and want[..., :m].sum() > 100
+    np.testing.assert_array_equal(got[..., :m][~edge], want[..., :m][~edge])
+    np.testing.assert_array_equal(got[..., m], want[..., m])
 
 
 def test_automatic_weighted_loss():

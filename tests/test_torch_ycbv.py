@@ -596,7 +596,7 @@ def test_cli_train_checkpoint_loads_in_jax_eval(ycbv_root,  # noqa: F811
     ("model.spline_kernel=3", ValueError),
     ("model.mesh_knn_k=6", ValueError),
     ("model.n_mesh_node=64", ValueError),
-    ("model.backbone=dgcnn", NotImplementedError)])
+    ("model.backbone=pointnet", ValueError)])
 @pytest.mark.parametrize("cmd", ["eval", "infer", "train"])
 def test_cli_refuses_widths_the_reference_ignores(cmd, opt, err, tmp_path):
     from gdm_tpu_torch import cli as cli_t
@@ -606,7 +606,7 @@ def test_cli_refuses_widths_the_reference_ignores(cmd, opt, err, tmp_path):
     if cmd != "train":
         args += ["--torch-checkpoint", str(tmp_path)]
     field = opt.split("=")[0]
-    with pytest.raises(err, match=field if err is ValueError else "item 4"):
+    with pytest.raises(err, match=field):
         cli_t.main(args)
 
 
