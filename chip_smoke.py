@@ -45,20 +45,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
 6. VSD: (a) ``cli eval --vsd`` at b=128 on the eval phase's tree (its
    object's models_eval PLY: the outward-wound convex hull of the fps
    points), then ``cli score --vsd`` of its CSV: the similarity kernel
-   launched once per batch plus the warm-up, the gather renderer
-   launched, the vsd / ar_vsd / bop19_ar rows in the table, the same
-   VSD errors (within 1e-6: t goes through mm) from both.  (b) bench.py's
-   hard VSD workload at 32 frames: the 20,480-face trefoil, cluttered
-   480x640 test depths whose GT is rendered by the scatter kernel (held
-   against its plain version), through ``vsd_err_batch`` in pipelined
-   chunks of at most 16 (one per window and z bucket): ms/frame of two
-   runs and peak memory, the
-   gather kernel's first chunk held against its plain version bit for
-   bit, the scatter renderer's errors and first-chunk depths equal to
-   the gather's, the card's errors equal to the CPU's on 2 frames; each
-   kernel's and plain version's time at that chunk beside its bound
-   (18 flops per real candidate-pixel test over the f32 FMA peak, or
-   the bytes at 3.35 TB/s).
+   launched once per batch plus the warm-up, the scatter renderer (the
+   stamp kernel) called and no host binning (bin_faces_to_slots and its
+   kin wrapped, 0 calls), the vsd / ar_vsd / bop19_ar rows in the table,
+   the same VSD errors (within 1e-6: t goes through mm) from both; the
+   stamp held against its plain version on the eval's first chunk and
+   timed there.  (b) bench.py's hard VSD workload at 32 frames: the
+   20,480-face trefoil, cluttered 480x640 test depths whose GT is
+   rendered by the stamp kernel (held against its plain version),
+   through ``vsd_err_batch`` in pipelined chunks of at most 16 (one per
+   window and z bucket): ms/frame of two runs (equal errors) and peak
+   memory, no host binning; the gather form
+   (``render_depth_window_gather``, the JAX package's VSD renderer) on
+   every chunk, its slot table binned on the host, equal to the stamp's
+   depths; the card's errors equal to the CPU's on 2 frames.  The stamp
+   and gather kernels each held against its plain version bit for bit
+   on the first chunk, and each one's and its plain version's time there
+   (the whole wrapper call) beside its bound (18 flops per (face, pixel)
+   test that its data needs, the pixels that each kept face can cover,
+   over the f32 FMA peak, or the bytes at 3.35 TB/s).
 7. Stacked: a synthetic tree of the 8 LM-O objects x 16 ``test`` frames,
    a seeded random checkpoint each, through ``cli infer --stacked``
    (by_class, group 4), ``--stacked-schedule vmap``, ``--stacked
@@ -118,7 +123,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    alone per 256^2 crop;
    ``finalize_batch(fill_depth=True)`` on the card against the CPU
    (within 1e-4), the chosen hole pixels taking their normals from the
-   filled depth; ``cli eval --dataset ycbv`` at b=128 on object 1;
+   filled depth; ``cli eval --dataset ycbv --vsd`` at b=128 on object 1
+   (its fps hull as models_eval; VSD errors equal to the CPU's on the
+   same inputs, no host binning);
    ``cli infer --stacked`` (by_class, group 4) on one mixed batch of 128
    over the 21 objects, every row's correspondences held against the
    plain argmax of its object's mesh features; ``cli train --dataset
@@ -762,17 +769,30 @@ def refine_phase(sim, workdir, base_timing):
 
 VSD_FRAMES, VSD_GROUP = 32, 16   # workload (b): chunks that pipeline
 VSD_CPU_FRAMES = 2               # card-vs-CPU frames of workload (b)
+YCBV_VSD_CPU_FRAMES = 1          # of cli eval --vsd --dataset ycbv
 VSD_CLI_TOL = 1e-6   # |eval --vsd - score --vsd|: t goes through mm
-FLOPS_PER_TEST = 18  # f32 flops of one (candidate, pixel) edge test
+FLOPS_PER_TEST = 18  # f32 flops of one (face, pixel) edge test
+TABLE_CAP = 64       # candidates per slot row of a host-binned table
+# the kernels' entries in the result line, and the wrapper of each
+RENDERERS = {"render_depth_gather": "render_depth_window_gather",
+             "render_depth_scatter": "render_depth_window"}
+# the host binning of the JAX package's VSD path, which the card's path
+# must not call
+HOST_BINNING = ("bin_faces_to_slots", "bin_faces_to_tiles",
+                "_face_tile_pairs")
 
 
-class FirstCall:
-    """While active, eval/vsd's renderer ``name`` is wrapped: the inputs
-    and the output of its first call are kept (to hold the kernel
-    against its plain version on exactly those tensors afterwards)."""
+class Calls:
+    """While active, eval/vsd's function ``name`` is wrapped: the inputs
+    and the output of every call are kept (to hold a kernel against its
+    plain version, or another renderer, on exactly those tensors)."""
 
     def __init__(self, name):
-        self.name, self.args, self.out = name, None, None
+        self.name, self.calls = name, []
+
+    @property
+    def first(self):
+        return self.calls[0]
 
     def __enter__(self):
         from gdm_tpu_torch.eval import vsd
@@ -781,8 +801,10 @@ class FirstCall:
 
         def call(*args, **kw):
             out = orig(*args, **kw)
-            if self.args is None:
-                self.args, self.out = (args, kw), out.clone()
+            # lists copied: the evaluator clears its own after the call
+            kept = tuple(list(a) if isinstance(a, list) else a for a in args)
+            self.calls.append(((kept, kw), out.clone()
+                               if torch.is_tensor(out) else out))
             return out
 
         setattr(vsd, self.name, call)
@@ -794,90 +816,166 @@ class FirstCall:
         setattr(vsd, self.name, self.orig)
 
 
+class NoHostBinning:
+    """Counts calls of the host binning functions (HOST_BINNING) of
+    ops/render_depth while active; on exit, fails if there was one."""
+
+    def __init__(self, tag):
+        self.tag, self.n = tag, 0
+
+    def __enter__(self):
+        from gdm_tpu_torch.ops import render_depth as rd
+
+        self.orig = {k: getattr(rd, k) for k in HOST_BINNING}
+        for k, fn in self.orig.items():
+            def call(*a, _fn=fn, **kw):
+                self.n += 1
+                return _fn(*a, **kw)
+            setattr(rd, k, call)
+        return self
+
+    def __exit__(self, *exc):
+        from gdm_tpu_torch.ops import render_depth as rd
+
+        for k, fn in self.orig.items():
+            setattr(rd, k, fn)
+        if exc[0] is None and self.n:
+            fail(f"{self.tag}: the host binning was called {self.n} times")
+
+
 def render_plain(name, args, kw):
     """The plain version of renderer ``name`` on the recorded batch
     (per render, as the CPU path runs it), on the same card tensors."""
     from gdm_tpu_torch.ops import render_depth as rd
 
     verts, table, K, origin, window, tile = args
+    n = verts.shape[0]
     if name == "render_depth_window_gather":
         st = kw.get("slot_tile")
         return torch.stack([rd.render_depth_window_gather_reference(
             verts[i], table[i], K, origin[i], window, tile,
             kw.get("cand_chunk", 256), None if st is None else st[i])
-            for i in range(verts.shape[0])])
+            for i in range(n)])
     return torch.stack([rd.render_depth_window_reference(
         verts[i], table[i], K, origin[i], window, tile,
-        kw.get("face_chunk", 1024)) for i in range(verts.shape[0])])
+        kw.get("face_chunk", 1024)) for i in range(n)])
+
+
+def _stamp_tests(p, ok, tile):
+    """Pixels that faces p [F, 3, 2] (kept where ok) can cover: each
+    face's bbox widened by one pixel on the high side, at most tile x
+    tile (the stamp's own tests)."""
+    lo = torch.floor(p.min(dim=1).values)[ok]
+    hi = torch.floor(p.max(dim=1).values)[ok]
+    span = torch.clamp(hi - lo + 2, max=tile)
+    return int((span[:, 0] * span[:, 1]).sum())
+
+
+def render_tests(name, args, kw):
+    """(face, pixel) tests that a recorded renderer call's data needs: for
+    each face that it keeps (in front, |area| > eps), the pixels that the
+    face can cover (_stamp_tests).  The table form computes the same
+    function from the faces it lists, each counted once (a table lists a
+    face under each of its tiles).  Also the tests that the JAX renderers
+    make on the same data: every pixel of each kept face's stamp, or of
+    each real table entry's tile."""
+    from gdm_tpu_torch.ops import render_depth as rd
+
+    verts, table, K, origin, window, tile = args
+    gx, gy = window[1] // tile, window[0] // tile
+    tests = full = 0
+    for i in range(verts.shape[0]):
+        pix, z = rd._project(verts[i], K, origin[i])
+        tri = table[i].long()
+        if name == "render_depth_window_gather":
+            st = kw.get("slot_tile")
+            rows = torch.arange(table.shape[1], device=verts.device) \
+                if st is None else st[i].long()
+            real = (tri != 0).any(-1) & (rows < gx * gy)[:, None]
+            full += int(real.sum()) * tile * tile
+            tri = torch.unique(tri[real], dim=0)
+        p = pix[tri]
+        ok, _ = rd._setup(p, z[tri])
+        tests += _stamp_tests(p, ok, tile)
+        if name != "render_depth_window_gather":
+            full += int(ok.sum()) * tile * tile
+    return tests, full
 
 
 def render_bound(name, args, kw, peak):
     """Least time of a recorded renderer call: FLOPS_PER_TEST flops per
-    real (candidate, pixel) test over the f32 FMA peak, or its inputs
-    read once and its depth written once at 3.35 TB/s, whichever is
-    larger.  Real candidates are non-zero triples (in rows of a real
-    tile, for the slot layout)."""
-    verts, table, _, origin, window, tile = args
-    real = (table != 0).any(-1)
-    st = kw.get("slot_tile")
+    test its data needs (render_tests) over the f32 FMA peak, or its
+    inputs read once and its depth written once at 3.35 TB/s, whichever
+    is larger.  Returns (ms, what bounds it, tests, the JAX renderers'
+    tests)."""
+    verts, table, _, origin, window, _ = args
     n_bytes = (verts.numel() + table.numel() + origin.numel() + 9) * 4 \
         + verts.shape[0] * window[0] * window[1] * 4
+    st = kw.get("slot_tile")
     if st is not None:
-        g = (window[0] // tile) * (window[1] // tile)
-        real = real & (st < g)[..., None]
         n_bytes += st.numel() * 4
-    tests = int(real.sum()) * tile * tile
+    tests, full = render_tests(name, args, kw)
     ops_ms = FLOPS_PER_TEST * tests / peak * 1e3
     bytes_ms = n_bytes / 3.35e12 * 1e3
     by = "operations" if ops_ms >= bytes_ms else "bytes"
-    return max(ops_ms, bytes_ms), by, tests
+    return max(ops_ms, bytes_ms), by, tests, full
 
 
-def hold_renderer(tag, rec, peak, reps=5):
-    """The kernel's recorded output against the plain version on the
-    same card tensors (bit-equal), then both timed on them."""
+def hold_renderer(tag, name, call, peak, reps=5):
+    """A recorded kernel call ((args, kw), out) against the plain version
+    on the same card tensors (bit-equal), then both timed on them: the
+    whole wrapper call, all of its launches."""
     from gdm_tpu_torch.ops import render_depth as rd
 
-    (args, kw), name = rec.args, rec.name
+    (args, kw), out = call
     fn = getattr(rd, name)
     plain = render_plain(name, args, kw)
     torch.cuda.synchronize()
-    n_diff = int((plain != rec.out).sum())
+    n_diff = int((plain != out).sum())
     covered = int((plain > 0).sum())
     if n_diff or covered == 0:
         fail(f"{tag}: kernel and plain version differ on {n_diff} pixels "
              f"({covered} covered)")
-    err = float((plain - rec.out).abs().max())
+    err = float((plain - out).abs().max())
     ms = median_ms(lambda: fn(*args, **kw), reps=reps, warmup=1)
     plain_ms = median_ms(lambda: render_plain(name, args, kw), reps=reps,
                          warmup=1)
-    bms, by, tests = render_bound(name, args, kw, peak)
+    bms, by, tests, full = render_bound(name, args, kw, peak)
     verts, table = args[0], args[1]
     shape = [list(verts.shape), list(table.shape), list(args[4]), args[5]]
     log(f"  {tag}: kernel == plain on all {plain.numel()} pixels of "
         f"{verts.shape[0]} renders ({covered} covered); median over {reps}: "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
-        f"({by}; {tests} tests x {FLOPS_PER_TEST} flops); verts, table, "
-        f"window, tile {shape}")
+        f"({by}; {tests} tests x {FLOPS_PER_TEST} flops; kernel at "
+        f"{100 * bms / ms:.1f}% of it; the JAX renderers test {full}: "
+        f"{FLOPS_PER_TEST * full / peak * 1e3:.4f} ms of operations); verts, "
+        f"table, window, tile {shape}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "shape": shape,
-            "tests": tests}
+            "tests": tests, "tests_jax": full}
 
 
-def write_eval_mesh(root, obj_id=1):
-    """models_eval/obj_*.ply of the eval tree: the convex hull of the
-    object's fps points (mm), wound outward as BOP meshes are."""
+def outward_hull(pts):
+    """Faces [F, 3] int32 of the convex hull of pts [P, 3], wound outward
+    as BOP meshes are."""
     from scipy.spatial import ConvexHull
 
-    from gdm_tpu_torch.data.ply import write_ply
-
-    pts = np.load(osp.join(root, "kps", f"obj_{obj_id:06d}_fps.npy"))[:, :3]
     hull = ConvexHull(pts)
-    faces = hull.simplices.copy()
+    faces = hull.simplices.astype(np.int32)
     tri = pts[faces]
     nrm = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
     flip = np.einsum("ij,ij->i", nrm, hull.equations[:, :3]) < 0
     faces[flip] = faces[flip][:, [0, 2, 1]]
+    return faces
+
+
+def write_eval_mesh(root, obj_id=1):
+    """models_eval/obj_*.ply of the eval tree: the convex hull of the
+    object's fps points (mm), wound outward."""
+    from gdm_tpu_torch.data.ply import write_ply
+
+    pts = np.load(osp.join(root, "kps", f"obj_{obj_id:06d}_fps.npy"))[:, :3]
+    faces = outward_hull(pts)
     os.makedirs(osp.join(root, "models_eval"), exist_ok=True)
     write_ply(osp.join(root, "models_eval", f"obj_{obj_id:06d}.ply"), pts,
               faces=faces)
@@ -886,14 +984,20 @@ def write_eval_mesh(root, obj_id=1):
 
 def reset_counts(sim, rd):
     sim.cosine_argmax.launches = 0
-    rd.render_depth_window_gather.launches = 0
-    rd.render_depth_window.launches = 0
+    for fn in RENDERERS.values():
+        getattr(rd, fn).launches = 0
 
 
-def vsd_cli_runs(sim, workdir, eval_timing):
+def render_launches(rd):
+    return {k: getattr(rd, fn).launches for k, fn in RENDERERS.items()}
+
+
+def vsd_cli_runs(sim, workdir, eval_timing, peak_flops):
     """Workload (a): ``cli eval --vsd`` then ``cli score --vsd`` of its CSV
-    on the eval phase's tree at b=128.  Returns the launches of both runs
-    by kernel."""
+    on the eval phase's tree at b=128, with no host binning; the stamp
+    kernel held against its plain version on the eval's first chunk and
+    timed there (the hull's faces are larger than the trefoil's).
+    Returns (the launches of both runs by kernel, the stamp's timing)."""
     from gdm_tpu_torch import cli
     from gdm_tpu_torch.ops import render_depth as rd
 
@@ -904,20 +1008,20 @@ def vsd_cli_runs(sim, workdir, eval_timing):
     reset_counts(sim, rd)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = cli.main(["eval", *common, "--torch-checkpoint", ckpt,
-                    "--exact-knn", "--num-workers", "8", "--vsd",
-                    "--output-dir", out])
+    with NoHostBinning("eval --vsd"), Calls("render_depth_window") as rec:
+        res = cli.main(["eval", *common, "--torch-checkpoint", ckpt,
+                        "--exact-knn", "--num-workers", "8", "--vsd",
+                        "--output-dir", out])
     wall = time.perf_counter() - t0
-    launches = {"cosine_argmax": sim.cosine_argmax.launches,
-                "render_depth_gather": rd.render_depth_window_gather.launches,
-                "render_depth_scatter": rd.render_depth_window.launches}
+    launches = dict(render_launches(rd),
+                    cosine_argmax=sim.cosine_argmax.launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if launches["cosine_argmax"] != len(res["timing"]) + 1:
         fail(f"eval --vsd: cosine_argmax launched "
              f"{launches['cosine_argmax']} times for {len(res['timing'])} "
              "batches + the warm-up")
-    if launches["render_depth_gather"] == 0 or launches[
-            "render_depth_scatter"]:
+    if launches["render_depth_scatter"] == 0 or \
+            launches["render_depth_gather"]:
         fail(f"eval --vsd: renderer launches {launches}")
     errs = np.asarray(res["errors"]["ape"]["vsd"])
     if errs.shape != (EVAL_FRAMES, 10) or not np.isfinite(errs).all() \
@@ -932,42 +1036,46 @@ def vsd_cli_runs(sim, workdir, eval_timing):
     log(f"  eval --vsd ({n_faces}-face hull): {EVAL_FRAMES} frames in "
         f"{wall:.2f} s end to end (plain eval's device ms per batch: "
         + ", ".join(f"{b['device_ms']:.2f}" for b in eval_timing)
-        + f"); gather launches {launches['render_depth_gather']}, "
-        f"similarity launches {launches['cosine_argmax']}; peak device "
-        f"memory {peak:.2f} GiB; ar_vsd {ar['ar_vsd']:.4f}, bop19_ar "
-        f"{ar['bop19_ar']:.4f}, mean VSD error {errs.mean():.4f}")
+        + f"); stamp renderer calls {launches['render_depth_scatter']}, "
+        f"host binning calls 0, similarity launches "
+        f"{launches['cosine_argmax']}; peak device memory {peak:.2f} GiB; "
+        f"ar_vsd {ar['ar_vsd']:.4f}, bop19_ar {ar['bop19_ar']:.4f}, mean "
+        f"VSD error {errs.mean():.4f}")
 
-    rd.render_depth_window_gather.launches = 0
+    rd.render_depth_window.launches = 0
     t0 = time.perf_counter()
-    scored = cli.main(["score", *common, "--vsd", "--csv",
-                       osp.join(out, "gt_lmo-test.csv")])
+    with NoHostBinning("score --vsd"):
+        scored = cli.main(["score", *common, "--vsd", "--csv",
+                           osp.join(out, "gt_lmo-test.csv")])
     wall_s = time.perf_counter() - t0
-    n_score = rd.render_depth_window_gather.launches
-    launches["render_depth_gather"] += n_score
+    n_score = rd.render_depth_window.launches
+    launches["render_depth_scatter"] += n_score
     d = float(np.abs(np.asarray(scored["errors"]["ape"]["vsd"])
                      - errs).max())
     if d > VSD_CLI_TOL or n_score == 0 or \
             scored["recalls"]["ape"]["vsd"] != res["recalls"]["ape"]["vsd"]:
         fail(f"score --vsd: VSD errors differ from eval --vsd by {d} "
-             f"(tolerance {VSD_CLI_TOL}), gather launches {n_score}")
+             f"(tolerance {VSD_CLI_TOL}), stamp renderer calls {n_score}")
     log(f"  score --vsd of the eval CSV: {EVAL_FRAMES} frames in "
         f"{wall_s:.2f} s ({wall_s * 1e3 / EVAL_FRAMES:.2f} ms/frame, host "
         f"metrics included); VSD errors within {d:.3g} of eval --vsd, "
-        f"recalls equal; gather launches {n_score}")
-    return launches
+        f"recalls equal; stamp renderer calls {n_score}")
+    timing = hold_renderer("stamp kernel, first chunk of (a)",
+                           "render_depth_window", rec.first, peak_flops)
+    return launches, timing
 
 
-def hard_vsd_workload(n_frames=VSD_FRAMES, seed=4):
+def hard_vsd_workload(n_frames=VSD_FRAMES, seed=4, mesh=None):
     """Workload (b), bench.py's measure_vsd_hard at 32 frames: the
-    20,480-face trefoil at z = 0.55 m, cluttered 480x640 test depths (the
-    GT render, composited over a background plane, an occluder strip and
-    5% holes), GT rendered on the card by the scatter kernel in one
-    launch.  Returns (poses, depths, K, verts, faces, diameter, gt
-    renders, their inputs)."""
+    20,480-face trefoil (or ``mesh``, (verts, faces)) at z = 0.55 m,
+    cluttered 480x640 test depths (the GT render, composited over a
+    background plane, an occluder strip and 5% holes), GT rendered on the
+    card by the scatter kernel in one call.  Returns (poses, depths, K,
+    verts, faces, diameter, gt renders, their inputs)."""
     from gdm_tpu_torch.data.synthetic import make_trefoil_mesh
     from gdm_tpu_torch.ops import render_depth as rd
 
-    verts, faces = make_trefoil_mesh()
+    verts, faces = make_trefoil_mesh() if mesh is None else mesh
     diameter = float(np.linalg.norm(verts.max(0) - verts.min(0)))
     K = np.array([[572.4, 0, 325.3], [0, 573.6, 242.0], [0, 0, 1]],
                  np.float32)
@@ -1006,7 +1114,7 @@ def hard_vsd_workload(n_frames=VSD_FRAMES, seed=4):
 
 def vsd_chunks(poses, depths, K, verts):
     """{(window side, z bucket): chunks}: vsd_err_batch's device batches,
-    one renderer launch each."""
+    one renderer call each."""
     from gdm_tpu_torch.eval.vsd import _prep_job
 
     sizes = {}
@@ -1016,11 +1124,65 @@ def vsd_chunks(poses, depths, K, verts):
     return {k: -(-n // VSD_GROUP) for k, n in sizes.items()}
 
 
+def host_slot_table(args):
+    """The JAX package's candidate table for a recorded stamp call: per
+    render, bin_faces_to_slots (TABLE_CAP per row) on the host, of the
+    faces the renderer keeps at their projection on the card; rows padded
+    to the chunk's largest table with the sentinel tile G.  Returns card
+    tensors (cand [N, S, TABLE_CAP, 3], slot_tile [N, S])."""
+    from gdm_tpu_torch.ops import render_depth as rd
+
+    verts, faces, K, origin, window, tile = args
+    side, g = window[0], (window[0] // tile) * (window[1] // tile)
+    tables = []
+    for i in range(verts.shape[0]):
+        pix, z = rd._project(verts[i], K, origin[i])
+        fl = faces[i].long()
+        ok, _ = rd._setup(pix[fl], z[fl])
+        tables.append(rd.bin_faces_to_slots(
+            pix[fl].cpu().numpy(), ok.cpu().numpy(), faces[i].cpu().numpy(),
+            side, tile, TABLE_CAP))
+    rows = max(len(c) for c, _ in tables)
+    cand = np.zeros((len(tables), rows, TABLE_CAP, 3), np.int32)
+    slot = np.full((len(tables), rows), g, np.int32)
+    for i, (c, st) in enumerate(tables):
+        cand[i, :len(c)] = c
+        slot[i, :len(st)] = st
+    return torch.from_numpy(cand).cuda(), torch.from_numpy(slot).cuda()
+
+
+def table_runs(stamped):
+    """The gather form (render_depth_window_gather, the JAX package's VSD
+    renderer) on every chunk of a vsd_err_batch run, each chunk's slot
+    table binned on the host (host_slot_table): each chunk's depth equal
+    to the stamp's bit for bit.  Returns (launches, the first chunk's call
+    ((args, kw), out), host ms per render of the binning)."""
+    from gdm_tpu_torch.ops import render_depth as rd
+
+    rd.render_depth_window_gather.launches = 0
+    first, bin_s, renders = None, 0.0, 0
+    for (args, _), want in stamped.calls:
+        t0 = time.perf_counter()
+        cand, st = host_slot_table(args)
+        bin_s += time.perf_counter() - t0
+        renders += args[0].shape[0]
+        kw = {"slot_tile": st}
+        got = rd.render_depth_window_gather(args[0], cand, *args[2:], **kw)
+        if not torch.equal(got, want):
+            fail(f"table form: {int((got != want).sum())} pixels differ "
+                 "from the stamp's")
+        if first is None:
+            first = (((args[0], cand) + tuple(args[2:]), kw), got.clone())
+    return rd.render_depth_window_gather.launches, first, \
+        bin_s * 1e3 / renders
+
+
 def vsd_batch_runs(peak_flops):
-    """Workload (b) through vsd_err_batch (gather, then scatter), each
-    renderer held against its plain version on its first chunk and the
-    GT render, the card against the CPU on VSD_CPU_FRAMES frames.
-    Returns (launches by kernel, per-kernel timing dicts)."""
+    """Workload (b) through vsd_err_batch (no host binning), the gather
+    form on the run's chunks, each renderer held against its plain version
+    on the first chunk and the GT render, the card against the CPU on
+    VSD_CPU_FRAMES frames.  Returns (the main path's launches by kernel,
+    per-kernel timing dicts, the gather form's launches)."""
     from gdm_tpu_torch.eval.vsd import vsd_err_batch
     from gdm_tpu_torch.ops import render_depth as rd
 
@@ -1029,58 +1191,51 @@ def vsd_batch_runs(peak_flops):
     poses, depths, K, verts, faces, diam, gt, gt_args = hard_vsd_workload()
     gt_launches = rd.render_depth_window.launches
     log(f"  workload (b): {len(faces)}-face trefoil, {VSD_FRAMES} frames, "
-        f"GT rendered by the scatter kernel ({gt_launches} launch) and "
+        f"GT rendered by the stamp kernel ({gt_launches} call) and "
         f"cluttered in {time.perf_counter() - t0:.2f} s")
     gt_ref = torch.stack([rd.render_depth_window_reference(
         gt_args[0][i], gt_args[1][i], gt_args[2], gt_args[3][i],
         gt_args[4], gt_args[5]) for i in range(2)])
     if not torch.equal(gt_ref, gt[:2]) or float(gt[:2].max()) == 0:
-        fail("GT render: scatter kernel differs from its plain version")
+        fail("GT render: stamp kernel differs from its plain version")
     args = (poses, depths, K, verts, faces, diam)
     kw = dict(group_cap=VSD_GROUP, device="cuda")
     vsd_err_batch(*args, **kw)                         # warm-up
     torch.cuda.synchronize()
-    walls = []
+    walls, runs = [], []
     for rep in range(2):
-        rd.render_depth_window_gather.launches = 0
+        rd.render_depth_window.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        with FirstCall("render_depth_window_gather") as rec_g:
+        with Calls("render_depth_window") as rec, \
+                NoHostBinning("vsd_err_batch") as nb:
             t0 = time.perf_counter()
-            errs = vsd_err_batch(*args, **kw)
+            runs.append(vsd_err_batch(*args, **kw))
             walls.append(time.perf_counter() - t0)
         if rep == 0:
-            rec = rec_g
-    n_gather = rd.render_depth_window_gather.launches
+            stamped = rec
+    errs = runs[0]
+    n_stamp = rd.render_depth_window.launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     chunks = vsd_chunks(poses, depths, K, verts)
-    if n_gather != sum(chunks.values()):
-        fail(f"vsd_err_batch: {n_gather} gather launches for the chunks "
-             f"{chunks}")
+    if n_stamp != sum(chunks.values()):
+        fail(f"vsd_err_batch: {n_stamp} stamp renderer calls for the "
+             f"chunks {chunks}")
+    if not np.array_equal(runs[1], errs):
+        fail("vsd_err_batch: two runs give different errors")
     if not np.isfinite(errs).all() or errs.min() < 0 or errs.max() > 1:
         fail("vsd_err_batch: VSD errors out of [0, 1]")
-    log(f"  vsd_err_batch (gather, group_cap {VSD_GROUP}, pipeline depth "
-        f"2): " + ", ".join(f"{w * 1e3 / VSD_FRAMES:.3f}" for w in walls)
-        + f" ms/frame (two runs after a warm-up); gather launches "
-        f"{n_gather} per run, one per chunk of (window, z bucket): "
-        f"{chunks}; peak device memory {peak:.2f} GiB; mean error "
-        f"{errs.mean():.4f}")
+    log(f"  vsd_err_batch (group_cap {VSD_GROUP}, pipeline depth 2): "
+        + ", ".join(f"{w * 1e3 / VSD_FRAMES:.3f}" for w in walls)
+        + f" ms/frame (two runs after a warm-up, equal errors); stamp "
+        f"renderer calls {n_stamp} per run, one per chunk of (window, z "
+        f"bucket): {chunks}; host binning calls {nb.n}; peak device memory "
+        f"{peak:.2f} GiB; mean error {errs.mean():.4f}")
 
-    rd.render_depth_window.launches = 0
-    with FirstCall("render_depth_window") as rec_s:
-        t0 = time.perf_counter()
-        errs_s = vsd_err_batch(*args, renderer="scatter", **kw)
-        wall_s = time.perf_counter() - t0
-    n_scatter = rd.render_depth_window.launches
-    if n_scatter != n_gather or \
-            not np.array_equal(errs_s, errs):
-        fail(f"renderer='scatter': {n_scatter} launches, errors equal to "
-             f"the gather's: {np.array_equal(errs_s, errs)}")
-    if not torch.equal(rec_s.out, rec.out):
-        fail("first chunk: scatter and gather depth images differ")
-    log(f"  vsd_err_batch (scatter): {wall_s * 1e3 / VSD_FRAMES:.3f} "
-        f"ms/frame; errors equal to the gather's; first chunk's "
-        f"{rec.out.shape[0]} depth images equal bit for bit; scatter "
-        f"launches {n_scatter}")
+    n_table, table_first, bin_ms = table_runs(stamped)
+    log(f"  gather form on the run's {len(stamped.calls)} chunks, slot "
+        f"tables (cap {TABLE_CAP}) binned on the host ({bin_ms:.3f} ms per "
+        f"render, projection on the card included): depth images equal to "
+        f"the stamp's; gather calls {n_table}")
 
     t0 = time.perf_counter()
     n = VSD_CPU_FRAMES
@@ -1091,26 +1246,33 @@ def vsd_batch_runs(peak_flops):
              f"{np.abs(errs_cpu - errs[:n]).max()}")
     log(f"  card vs CPU on {n} frames: VSD errors equal (step cost), CPU "
         f"{time.perf_counter() - t0:.2f} s")
-    timing = {"render_depth_gather": hold_renderer(
-                  "gather kernel, first chunk of (b)", rec, peak_flops),
-              "render_depth_scatter": hold_renderer(
-                  "scatter kernel, first chunk of (b)", rec_s, peak_flops)}
-    for k, v in timing.items():
-        v["ms_per_frame"] = [w * 1e3 / VSD_FRAMES for w in walls] \
-            if k == "render_depth_gather" else [wall_s * 1e3 / VSD_FRAMES]
-        v["peak_gib"] = peak
-    return ({"render_depth_gather": n_gather,
-             "render_depth_scatter": n_scatter + gt_launches}, timing)
+    timing = {}
+    for key, tag, call in (
+            ("render_depth_scatter", "stamp kernel", stamped.first),
+            ("render_depth_gather", "gather kernel (slot rows)",
+             table_first)):
+        timing[key] = hold_renderer(f"{tag}, first chunk of (b)",
+                                    RENDERERS[key], call, peak_flops)
+        timing[key]["peak_gib"] = peak
+    timing["render_depth_scatter"]["ms_per_frame"] = [
+        w * 1e3 / VSD_FRAMES for w in walls]
+    return ({"render_depth_scatter": n_stamp + gt_launches,
+             "render_depth_gather": 0}, timing, n_table)
 
 
 def vsd_phase(sim, workdir, eval_timing):
     """Workload (a) on the eval tree, then workload (b); launches by
-    kernel summed over the main-path runs, and the renderers' timing."""
-    launches = vsd_cli_runs(sim, workdir, eval_timing)
+    kernel summed over the main-path runs, and the renderers' timing (the
+    gather form's launches, all by its check on (b)'s chunks, apart)."""
     peak = fma_peak_flops()
-    b_launches, timing = vsd_batch_runs(peak)
+    launches, timing_a = vsd_cli_runs(sim, workdir, eval_timing, peak)
+    b_launches, timing, n_table = vsd_batch_runs(peak)
     for k, v in b_launches.items():
         launches[k] += v
+    timing["render_depth_scatter"]["workload_a"] = {
+        k: timing_a[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "shape", "tests")}
+    timing["render_depth_gather"]["check_launches"] = n_table
     return launches, timing
 
 
@@ -2410,14 +2572,53 @@ def ycbv_train(sim, cfg, workdir, root):
     return n
 
 
+def ycbv_vsd_check(res, vsd_calls, n_vsd, n_faces, n_rows):
+    """``cli eval --vsd --dataset ycbv`` of object 1: one VSD error row per
+    frame in [0, 1], the stamp renderer called, and on the first
+    YCBV_VSD_CPU_FRAMES frames the card's errors equal to vsd_err_batch's
+    on the CPU from the same inputs, at the eval's poses and at the GT
+    poses (the plain renderer takes seconds per render of the hull)."""
+    from gdm_tpu_torch.eval.vsd import vsd_err_batch
+
+    (obj_errs,) = res["errors"].values()
+    errs = np.asarray(obj_errs["vsd"])
+    if errs.shape != (n_rows, 10) or not np.isfinite(errs).all() \
+            or errs.min() < 0 or errs.max() > 1 or n_vsd == 0:
+        fail(f"ycbv eval --vsd: errors of shape {errs.shape} for {n_rows} "
+             f"rows, stamp renderer calls {n_vsd}")
+    t0 = time.perf_counter()
+    (args, kw), out = vsd_calls.first
+    n = YCBV_VSD_CPU_FRAMES
+    poses, depths, K = args[0][:n], args[1][:n], args[2][:n]
+    # the random weights' poses miss (errors near 1): the GT poses as the
+    # estimates give errors below 1 as well
+    at_gt = [(R, t, R, t) for _, _, R, t in poses]
+    card = vsd_err_batch(at_gt, depths, K, *args[3:], **kw)
+    for tag, p, want in (("eval's poses", poses, out[:n]),
+                         ("GT poses", at_gt, card)):
+        cpu = vsd_err_batch(p, depths, K, *args[3:], **dict(kw, device="cpu"))
+        if not np.array_equal(cpu, want):
+            fail(f"ycbv eval --vsd at the {tag}: card and CPU errors differ "
+                 f"by {np.abs(cpu - want).max()}")
+    if card.min() >= 1:
+        fail("ycbv VSD at the GT poses: every error is 1")
+    log(f"  cli eval --vsd --dataset ycbv (object 1, {n_faces}-face hull): "
+        f"{n_rows} VSD error rows, mean {errs.mean():.4f}; stamp renderer "
+        f"calls {n_vsd}, host binning calls 0; on {n} frames the card's "
+        f"errors equal the CPU's, at the eval's poses and at the GT poses "
+        f"(mean {card.mean():.4f}) ({time.perf_counter() - t0:.2f} s)")
+
+
 def ycbv_phase(sim, workdir):
     """The YCB-V preset (fill_depth, the real/pbr mix, noise and real
-    backgrounds) at its widths: cli eval at b=128 on object 1, cli infer
-    --stacked on one mixed batch of 128 over the 21 objects, cli train at
-    b=8; finalize on the card against the CPU; the host costs.  Returns
-    the similarity launches of the eval, stacked and trained-eval runs."""
+    backgrounds) at its widths: cli eval --vsd at b=128 on object 1, cli
+    infer --stacked on one mixed batch of 128 over the 21 objects, cli
+    train at b=8; finalize on the card against the CPU; the host costs.
+    Returns the similarity launches of the eval, stacked and trained-eval
+    runs, and the stamp renderer's calls of the eval."""
     from gdm_tpu_torch import cli
     from gdm_tpu_torch.configs import YCBV as cfg
+    from gdm_tpu_torch.ops import render_depth as rd
 
     root, ckpt = osp.join(workdir, "ycbv"), osp.join(workdir, "ckpt_ycbv")
     batch = cfg.solver.val_batch_size
@@ -2434,16 +2635,22 @@ def ycbv_phase(sim, workdir):
     common = ["--dataset", "ycbv", "--data-root", root, "--torch-checkpoint",
               ckpt, "--exact-knn", "--num-workers", "8"]
     out = osp.join(workdir, "ycbv_out")
+    n_faces = write_eval_mesh(root)
     torch.cuda.reset_peak_memory_stats()
     sim.cosine_argmax.launches = 0
+    rd.render_depth_window.launches = 0
     t0 = time.perf_counter()
-    with FitChecks(sim, "ycbv eval") as fc:
-        res = cli.main(["eval", *common, "--cls-id", "1", "--output-dir",
-                        out])
+    with FitChecks(sim, "ycbv eval") as fc, \
+            Calls("vsd_err_batch") as vsd_calls, \
+            NoHostBinning("ycbv eval --vsd"):
+        res = cli.main(["eval", *common, "--cls-id", "1", "--vsd",
+                        "--output-dir", out])
     wall = time.perf_counter() - t0 - fc.seconds
     n = sim.cosine_argmax.launches
     launches += n
+    n_vsd = rd.render_depth_window.launches
     rows = read_csv_poses(osp.join(out, "gt_ycbv-test.csv"))
+    ycbv_vsd_check(res, vsd_calls, n_vsd, n_faces, len(rows))
     log(f"  cli eval --dataset ycbv (object 1, b={batch}): device ms per "
         "batch " + ", ".join(
             f"{b['device_ms']:.2f} ({b['device_ms'] - c:.2f} without the "
@@ -2492,7 +2699,7 @@ def ycbv_phase(sim, workdir):
              "checked")
     check_poses(np.stack(list(rows.values())), len(rows))
     launches += ycbv_train(sim, cfg, workdir, root)
-    return launches
+    return launches, n_vsd
 
 
 def main() -> int:
@@ -2556,7 +2763,8 @@ def main() -> int:
         launches_dgcnn = dgcnn_phase(sim, eval_dir, train_dir)
     phase("ycbv")
     with tempfile.TemporaryDirectory() as workdir:
-        launches_ycbv = ycbv_phase(sim, workdir)
+        launches_ycbv, ycbv_stamped = ycbv_phase(sim, workdir)
+    launches_vsd["render_depth_scatter"] += ycbv_stamped
     log(f"  phase wall time {time.perf_counter() - t_phase[0]:.1f} s")
 
     # one entry per kernel: the eval shape (batch 128, the main path the
@@ -2596,7 +2804,11 @@ def main() -> int:
         "launches": launches_vsd[name],
         "library_ms": None,
     }, **vsd_timing[name]) for name, replaces in (
+        # the JAX package's VSD renderer, over host-binned tables; off the
+        # port's main path (launches 0), held on (b)'s chunks
+        # (check_launches)
         ("render_depth_gather", "gdm_tpu/ops/render_depth.py:347"),
+        # what eval/vsd renders with
         ("render_depth_scatter", "gdm_tpu/ops/render_depth.py:96"))]}))
     log(smi.splitlines()[0])
     log(json.dumps({"ok": True, "device": {

@@ -11,10 +11,12 @@ model"; pixels beyond the full image are zeroed, as a full-frame render
 has none).
 
 The host (numpy, a copy of the JAX package's) picks each frame's window
-and subdivision bucket, crops the test depth, culls and bins faces to the
-raster tiles (ops/render_depth.bin_faces_to_slots).  The device
-transforms the mesh by both poses, renders both with the gather kernel
-(csrc/render_depth.cu, one launch per chunk of frames) and scores them.
+and subdivision bucket, crops the test depth and culls faces.  The device
+transforms the mesh by both poses, renders both from the culled face
+lists with the scatter renderer (csrc/render_depth.cu, one call per chunk
+of frames) and scores them.  The JAX package renders with its gather
+form, over tables that the host bins (bin_faces_to_slots); both forms
+give the same depth, and the scatter form needs no binning.
 ``vsd_err_batch`` prepares the next chunk on the host while the device
 renders the previous one.
 
@@ -38,10 +40,8 @@ import torch
 
 from gdm_tpu_torch.data.ply import _winding_orientation
 from gdm_tpu_torch.ops.render_depth import (
-    bin_faces_to_slots,
     fma32,
     render_depth_window,
-    render_depth_window_gather,
     subdivide_max_edge,
 )
 
@@ -50,12 +50,8 @@ BOP19_DELTA = 0.015          # 15 mm (eval_calc_errors.py:37-48)
 BOP19_CORRECT_TH = (0.3,)    # eval_calc_scores.py:18
 
 _WINDOW_BUCKETS = (64, 128, 256, 512, 1024)
-_FACE_BUCKET_MIN = 512       # face-count bucket floor (scatter renderer)
-_FACE_CHUNK = 512            # faces per step of the plain scatter renderer
-_CAND_CHUNK = 512            # memory knob of the plain gather renderer
-# candidates per slot row (bin_faces_to_slots): table bytes follow the
-# real candidate count; dense tiles spill into further rows
-_SLOT_CAP = 64
+_FACE_BUCKET_MIN = 512       # face-count bucket floor
+_FACE_CHUNK = 512            # faces per step of the plain renderer
 
 # per-mesh subdivision cache: the raster tile bounds screen-space triangle
 # size, so the required 3-D edge bound depends on how close the object can
@@ -213,30 +209,21 @@ def _transform(verts, R, t):
     return torch.stack(rows, dim=-1)
 
 
-def _vsd_core_batch(verts, lanes, R_est, t_est, R_gt, t_gt, K, origin,
+def _vsd_core_batch(verts, faces, R_est, t_est, R_gt, t_gt, K, origin,
                     depth_wins, im_hw, taus, delta, diameter,
                     window=(256, 256), tile=16, cost_type="step",
-                    normalized_by_diameter=True, renderer="scatter"):
+                    normalized_by_diameter=True):
     """VSD errors [B, n_taus] of B frames of one mesh, on the device of
-    the tensors.  ``lanes`` is [B, 2, Fb, 3] culled face lists (scatter)
-    or a ([B, 2, S, cap, 3], [B, 2, S]) slot-row candidate table + slot
-    -> tile map (gather); render 0 of a frame is the estimate, 1 the GT.
-    One renderer launch covers the 2B renders."""
+    the tensors.  ``faces`` is [B, 2, Fb, 3] culled face lists, padded
+    with all-zero rows; render 0 of a frame is the estimate, 1 the GT.
+    One renderer call covers the 2B renders."""
     b = R_est.shape[0]
     h, w = window
     v = _transform(verts, torch.stack([R_est, R_gt], 1).reshape(-1, 3, 3),
                    torch.stack([t_est, t_gt], 1).reshape(-1, 3))
     org2 = origin.repeat_interleave(2, dim=0)
-    if renderer == "gather":
-        cand, slots = lanes
-        d = render_depth_window_gather(
-            v, cand.reshape((2 * b,) + cand.shape[2:]), K, org2, window,
-            tile, cand_chunk=_CAND_CHUNK,
-            slot_tile=slots.reshape(2 * b, -1))
-    else:
-        d = render_depth_window(v, lanes.reshape((2 * b,) + lanes.shape[2:]),
-                                K, org2, window, tile,
-                                face_chunk=_FACE_CHUNK)
+    d = render_depth_window(v, faces.reshape((2 * b,) + faces.shape[2:]), K,
+                            org2, window, tile, face_chunk=_FACE_CHUNK)
     d = d.reshape(b, 2, h, w)
 
     # zero model depth beyond the full image bounds (a full-frame render
@@ -296,7 +283,7 @@ def _bucket(v, buckets):
 def vsd_err(R_est, t_est, R_gt, t_gt, depth_test, K, verts, faces,
             diameter, delta=BOP19_DELTA, taus=BOP19_TAUS,
             normalized_by_diameter=True, cost_type="step",
-            tile=32, renderer="gather", device="cuda") -> np.ndarray:
+            tile=32, device="cuda") -> np.ndarray:
     """VSD errors, one per tau (pose_error.py:22-129 semantics).
 
     Args:
@@ -307,8 +294,6 @@ def vsd_err(R_est, t_est, R_gt, t_gt, depth_test, K, verts, faces,
         subdivision to the raster-tile bound is cached per mesh and
         distance bucket.
       tile: raster stamp size.
-      renderer: "gather" (binned candidates, the default) or "scatter"
-        (the bit-identical cross-check).
       device: where the renders and the scoring run.
 
     Returns: [len(taus)] f32 errors in [0, 1].
@@ -317,8 +302,7 @@ def vsd_err(R_est, t_est, R_gt, t_gt, depth_test, K, verts, faces,
     errs = _run_group(
         [job], np.asarray(verts, np.float32),
         np.asarray(faces, np.int32), diameter, delta, taus, tile,
-        cost_type, normalized_by_diameter, renderer=renderer,
-        device=device)
+        cost_type, normalized_by_diameter, device=device)
     return errs[0].cpu().numpy()
 
 
@@ -382,8 +366,7 @@ def _prep_job(R_est, t_est, R_gt, t_gt, depth_test, K, verts, tile):
 
 
 def _run_group(jobs, verts, faces, diameter, delta, taus, tile,
-               cost_type, normalized_by_diameter, renderer="gather",
-               device="cuda"):
+               cost_type, normalized_by_diameter, device="cuda"):
     """Run jobs that share (side, z bucket, K, im_hw) as ONE batch on
     ``device``: one renderer launch for all of their renders.
 
@@ -391,13 +374,11 @@ def _run_group(jobs, verts, faces, diameter, delta, taus, tile,
     them, so that the caller prepares the next chunk on the host while
     the device renders this one.
 
-    The JAX package pads the batch to a power of two and the slot rows to
-    a _face_bucket, so that its compiled programs are reused.  The port
-    runs the n real jobs and pads slot rows only to the chunk's largest
-    table (padding rows carry the sentinel tile G, which the renderers
-    drop): the plain renderer would compute every padding row.  Face
-    lists keep JAX's bucket; their padding faces are all-zero, which the
-    renderers skip.
+    The host culls each render's faces (_project_visible) and uploads
+    the culled lists.  The JAX package pads the batch to a power of two
+    so that its compiled programs are reused; the port runs the n real
+    jobs.  Face lists keep JAX's bucket; their padding faces are
+    all-zero, which the renderer drops.
     """
     dev = torch.device(device)
     n = len(jobs)
@@ -407,48 +388,32 @@ def _run_group(jobs, verts, faces, diameter, delta, taus, tile,
     v_np, f_np, verts_dev, orient = _prepared_mesh(
         verts, faces, Knp, min(j["z_min"] for j in jobs), tile,
         _ray_angle_factor(Knp, (imh, imw), jobs[0]["margin"]), dev)
-    proj = [[_project_visible(v_np, f_np, orient, j[f"R_{k}"],
-                              j[f"t_{k}"], Knp, j["origin"], side, tile)
-             for k in ("est", "gt")] for j in jobs]
-    if renderer == "gather":
-        g = side // tile
-        slotted = [[bin_faces_to_slots(p, vis, f_np, side, tile,
-                                       _SLOT_CAP)
-                    for p, vis in renders] for renders in proj]
-        sb = max(max(a[0].shape[0], b[0].shape[0]) for a, b in slotted)
-        cand = np.zeros((n, 2, sb, _SLOT_CAP, 3), np.int32)
-        slots = np.full((n, 2, sb), g * g, np.int32)   # pad sentinel
-        for i, renders in enumerate(slotted):
-            for r, (cd, st) in enumerate(renders):
-                cand[i, r, :cd.shape[0]] = cd
-                slots[i, r, :st.shape[0]] = st
-        lanes = (_upload(cand, dev), _upload(slots, dev))
-    else:
-        vis = [[np.where(v)[0] for _, v in renders] for renders in proj]
-        fb = _face_bucket(max(max(len(a), len(b)) for a, b in vis))
-        fl = np.zeros((n, 2, fb, 3), np.int32)
-        for i, (ia, ib) in enumerate(vis):
-            fl[i, 0, :len(ia)] = f_np[ia]
-            fl[i, 1, :len(ib)] = f_np[ib]
-        lanes = _upload(fl, dev)
+    vis = [[_visible_face_idx(v_np, f_np, orient, j[f"R_{k}"], j[f"t_{k}"],
+                              Knp, j["origin"], side, tile)
+            for k in ("est", "gt")] for j in jobs]
+    fb = _face_bucket(max(max(len(a), len(b)) for a, b in vis))
+    fl = np.zeros((n, 2, fb, 3), np.int32)
+    for i, (ia, ib) in enumerate(vis):
+        fl[i, 0, :len(ia)] = f_np[ia]
+        fl[i, 1, :len(ib)] = f_np[ib]
     st = {k: _upload(np.stack([j[k] for j in jobs]), dev)
           for k in ("R_est", "t_est", "R_gt", "t_gt", "origin", "win")}
     return _vsd_core_batch(
-        verts_dev, lanes, st["R_est"], st["t_est"], st["R_gt"],
+        verts_dev, _upload(fl, dev), st["R_est"], st["t_est"], st["R_gt"],
         st["t_gt"], _upload(Knp, dev), st["origin"], st["win"],
         _upload(jobs[0]["im_hw"], dev),
         _upload(np.asarray(list(taus), np.float32), dev),
         _upload(np.asarray(delta, np.float32), dev),
         _upload(np.asarray(diameter, np.float32), dev),
         window=(side, side), tile=tile, cost_type=cost_type,
-        normalized_by_diameter=normalized_by_diameter, renderer=renderer)
+        normalized_by_diameter=normalized_by_diameter)
 
 
 def vsd_err_batch(poses, depth_tests, K, verts, faces, diameter,
                   delta=BOP19_DELTA, taus=BOP19_TAUS,
                   normalized_by_diameter=True, cost_type="step",
-                  tile=32, group_cap=16, renderer="gather",
-                  pipeline_depth=2, device="cuda") -> np.ndarray:
+                  tile=32, group_cap=16, pipeline_depth=2,
+                  device="cuda") -> np.ndarray:
     """VSD errors for many frames of one object: [n, len(taus)] float64.
 
     Frames are grouped by (window bucket, subdivision z bucket, K, image
@@ -461,10 +426,10 @@ def vsd_err_batch(poses, depth_tests, K, verts, faces, diameter,
       K: one [3, 3] intrinsics shared by all frames, or a sequence of
         per-frame intrinsics (frames group by K as well).
       group_cap: max frames per device batch (bounds the in-flight
-        window and candidate-table memory at roughly pipeline_depth+1
-        chunks).
+        window, face-list and renderer scratch memory at roughly
+        pipeline_depth+1 chunks).
       pipeline_depth: chunks left on the device, unread, while the host
-        prepares the next one (projection, culling and tile binning); 0
+        prepares the next one (window, crop, projection and culling); 0
         reads each chunk before preparing the next.  Results do not
         depend on it.
       device: where the renders and the scoring run.
@@ -496,7 +461,7 @@ def vsd_err_batch(poses, depth_tests, K, verts, faces, diameter,
             errs_dev = _run_group(
                 [jobs[i] for i in sel], verts, faces, diameter,
                 delta, taus, tile, cost_type, normalized_by_diameter,
-                renderer=renderer, device=device)
+                device=device)
             pending.append((errs_dev, sel))
             drain(pipeline_depth)
     drain(0)

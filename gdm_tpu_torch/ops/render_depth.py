@@ -5,18 +5,21 @@ copy: loop subdivision to the raster-tile bound and the binning of faces
 to raster tiles.  The device part is two renderers, each a wrapper with a
 plain PyTorch version beside it and a launch counter:
 
-  * :func:`render_depth_window` (scatter form): each face stamps a
-    ``tile`` x ``tile`` block at its bbox and a scatter-min z-buffer
-    resolves overlaps;
-  * :func:`render_depth_window_gather` (gather form): the host bins faces
-    to the raster tiles their bbox touches, and each tile takes the min
-    over its candidate faces, per pixel.  It is what VSD runs.
+  * :func:`render_depth_window` (scatter form, what VSD runs): each face
+    stamps a ``tile`` x ``tile`` block at its bbox and a scatter-min
+    z-buffer resolves overlaps;
+  * :func:`render_depth_window_gather` (gather form, the JAX package's
+    VSD renderer): over a host-binned candidate table, dense or in slot
+    rows (``bin_faces_to_tiles`` / ``bin_faces_to_slots``), each tile
+    takes the min over its candidate faces, per pixel.
 
 In JAX both are XLA programs, not Pallas kernels; PyTorch has no fused op
-for either, and the plain gather materialises [rows, k, tile^2]
-temporaries, so on the card each is a hand-written CUDA kernel in
-``csrc/render_depth.cu``.  A CPU tensor takes the plain version, a CUDA
-tensor launches the kernel or raises; there is no fallback.
+for either, and the plain versions materialise [faces, tile^2] or [rows,
+k, tile^2] temporaries, so on the card each is a hand-written CUDA kernel
+in ``csrc/render_depth.cu``: one face setup and a stamp of the pixels
+each face (or table entry) can cover.  A CPU tensor takes the plain
+version, a CUDA tensor launches the kernel or raises; there is no
+fallback.
 
 Arithmetic: VSD compares depths, so the renderers are held bit-equal to
 the JAX package's, whose f32 arithmetic the XLA CPU backend compiles
@@ -30,7 +33,7 @@ two renderers and the two layouts of the gather form give the same bits.
 
 Both renderers take one render ([V, 3] vertices, [2] origin, -> [h, w])
 or a batch of N renders with leading N axes (-> [N, h, w]): the kernels
-cover the batch in one launch.
+cover the batch in one call.
 """
 
 from __future__ import annotations
@@ -431,17 +434,37 @@ def _check(name, t, dtype, dim, device):
         raise ValueError(f"{name} on {t.device}, vertices on {device}")
 
 
+def _check_common(verts, table, table_name, K, origin):
+    """Types, devices and the batch of the kernels' shared arguments."""
+    n, dev = verts.shape[0], verts.device
+    _check("verts_cam", verts, torch.float32, 3, dev)
+    _check(table_name, table, torch.int32, table.dim(), dev)
+    _check("K", K, torch.float32, 2, dev)
+    _check("origin", origin, torch.float32, 2, dev)
+    if table.shape[0] != n or table.shape[-1] != 3 or \
+            origin.shape != (n, 2) or K.shape != (3, 3):
+        raise ValueError(f"{table_name} {tuple(table.shape)} / origin "
+                         f"{tuple(origin.shape)} / K {tuple(K.shape)} do "
+                         f"not fit {n} renders")
+
+
+_LIB = []   # the loaded library, its argtypes set (built at first use)
+
+
 def _library():
+    if _LIB:
+        return _LIB[0]
     from gdm_tpu_torch import _build
 
     lib = _build.load("render_depth")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gdm_render_depth_gather.argtypes = [p, i, p, p, i, i, p, p, i, i,
-                                            i, i, p, p]
-    lib.gdm_render_depth_gather.restype = ctypes.c_int
+                                            i, i, p, p, p]
     lib.gdm_render_depth_scatter.argtypes = [p, i, p, i, p, p, i, i, i, i,
-                                             p, p]
-    lib.gdm_render_depth_scatter.restype = ctypes.c_int
+                                             p, p, p]
+    for fn in (lib.gdm_render_depth_gather, lib.gdm_render_depth_scatter):
+        fn.restype = ctypes.c_int
+    _LIB.append(lib)
     return lib
 
 
@@ -449,20 +472,23 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _raise(rc, name, **shape):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} at "
+                           + ", ".join(f"{k}={v}" for k, v in shape.items()))
+
+
 def _launch_gather(verts, cand, K, origin, window, tile, slot_tile):
     n, v = verts.shape[0], verts.shape[1]
     h, w = window
     dev = verts.device
-    _check("verts_cam", verts, torch.float32, 3, dev)
-    _check("cand", cand, torch.int32, 4, dev)
-    _check("K", K, torch.float32, 2, dev)
-    _check("origin", origin, torch.float32, 2, dev)
-    if cand.shape[0] != n or cand.shape[3] != 3 or origin.shape != (n, 2):
-        raise ValueError(f"cand {tuple(cand.shape)} / origin "
-                         f"{tuple(origin.shape)} do not fit {n} renders")
-    if h % tile or w % tile or tile * tile > 1024:
+    _check_common(verts, cand, "cand", K, origin)
+    if cand.dim() != 4:
+        raise ValueError(f"cand: want [N, rows, k, 3], got "
+                         f"{tuple(cand.shape)}")
+    if tile <= 0 or h % tile or w % tile:
         raise ValueError(f"window {window} with tile {tile}: sides must be "
-                         "multiples of the tile, tile^2 <= 1024")
+                         "multiples of the tile")
     rows, k = cand.shape[1], cand.shape[2]
     if slot_tile is not None:
         _check("slot_tile", slot_tile, torch.int32, 2, dev)
@@ -472,45 +498,39 @@ def _launch_gather(verts, cand, K, origin, window, tile, slot_tile):
     elif rows != (h // tile) * (w // tile):
         raise ValueError(f"dense layout: {rows} rows, want one per tile")
     out = torch.empty((n, h, w), dtype=torch.float32, device=dev)
-    if k == 0:
+    if rows * k == 0 or out.numel() == 0:
         return out.zero_()
+    rec = torch.empty((n, rows * k, 16), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _library().gdm_render_depth_gather(
             verts.data_ptr(), v, cand.data_ptr(),
             0 if slot_tile is None else slot_tile.data_ptr(), rows, k,
-            K.data_ptr(), origin.data_ptr(), n, h, w, tile, out.data_ptr(),
-            _stream(verts))
-    if rc != 0:
-        raise RuntimeError(f"render_depth_gather kernel launch failed: CUDA "
-                           f"error {rc} at N={n}, rows={rows}, k={k}, "
-                           f"window={window}, tile={tile}")
+            K.data_ptr(), origin.data_ptr(), n, h, w, tile, rec.data_ptr(),
+            out.data_ptr(), _stream(verts))
+    _raise(rc, "render_depth_gather", N=n, rows=rows, k=k, window=window,
+           tile=tile)
     render_depth_window_gather.launches += 1
     return out
 
 
 def _launch_scatter(verts, faces, K, origin, window, tile):
-    n, v = verts.shape[0], verts.shape[1]
+    n, v, nf = verts.shape[0], verts.shape[1], faces.shape[1]
     h, w = window
-    dev = verts.device
-    _check("verts_cam", verts, torch.float32, 3, dev)
-    _check("faces", faces, torch.int32, 3, dev)
-    _check("K", K, torch.float32, 2, dev)
-    _check("origin", origin, torch.float32, 2, dev)
-    if faces.shape[0] != n or faces.shape[2] != 3 or origin.shape != (n, 2):
-        raise ValueError(f"faces {tuple(faces.shape)} / origin "
-                         f"{tuple(origin.shape)} do not fit {n} renders")
-    out = torch.empty((n, h, w), dtype=torch.float32, device=dev)
-    nf = faces.shape[1]
-    if nf == 0:
+    _check_common(verts, faces, "faces", K, origin)
+    if faces.dim() != 3:
+        raise ValueError(f"faces: want [N, F, 3], got {tuple(faces.shape)}")
+    if tile <= 0:
+        raise ValueError(f"tile {tile}")
+    out = torch.empty((n, h, w), dtype=torch.float32, device=verts.device)
+    if nf == 0 or out.numel() == 0:
         return out.zero_()
-    with torch.cuda.device(dev):
+    rec = torch.empty((n, nf, 16), dtype=torch.float32, device=verts.device)
+    with torch.cuda.device(verts.device):
         rc = _library().gdm_render_depth_scatter(
             verts.data_ptr(), v, faces.data_ptr(), nf, K.data_ptr(),
-            origin.data_ptr(), n, h, w, tile, out.data_ptr(), _stream(verts))
-    if rc != 0:
-        raise RuntimeError(f"render_depth_scatter kernel launch failed: "
-                           f"CUDA error {rc} at N={n}, F={nf}, "
-                           f"window={window}, tile={tile}")
+            origin.data_ptr(), n, h, w, tile, rec.data_ptr(), out.data_ptr(),
+            _stream(verts))
+    _raise(rc, "render_depth_scatter", N=n, F=nf, window=window, tile=tile)
     render_depth_window.launches += 1
     return out
 
@@ -521,9 +541,10 @@ def render_depth_window(verts_cam, faces, K, origin, window=(256, 256),
     [h, w]) or N ([N, V, 3], [N, F, 3], [N, 2] -> [N, h, w]).
 
     CPU tensors take :func:`render_depth_window_reference` per render;
-    CUDA tensors launch ``render_depth_scatter`` (csrc/render_depth.cu)
-    once for the batch, counted in ``render_depth_window.launches``.
-    ``face_chunk`` is the plain version's memory knob."""
+    CUDA tensors launch ``render_depth_scatter`` (csrc/render_depth.cu:
+    fill, face setup, bbox stamp, finish) once for the batch, counted in
+    ``render_depth_window.launches``.  ``face_chunk`` is the plain
+    version's memory knob."""
     verts, faces_b, origin_b, single = _batched(verts_cam, faces, origin)
     if verts.is_cuda:
         out = _launch_scatter(verts, faces_b, K, origin_b, tuple(window),
@@ -541,14 +562,16 @@ render_depth_window.launches = 0
 def render_depth_window_gather(verts_cam, cand, K, origin,
                                window=(256, 256), tile=32, cand_chunk=256,
                                slot_tile=None):
-    """Gather renderer: one render ([V, 3], cand [G|S, k, 3], origin [2],
-    slot_tile [S] -> [h, w]) or N (leading N axes -> [N, h, w]).
+    """Gather renderer over a host-binned table: one render ([V, 3],
+    cand [G|S, k, 3], origin [2], slot_tile [S] -> [h, w]) or N (leading
+    N axes -> [N, h, w]).
 
     CPU tensors take :func:`render_depth_window_gather_reference` per
     render; CUDA tensors launch ``render_depth_gather``
-    (csrc/render_depth.cu) once for the batch, counted in
-    ``render_depth_window_gather.launches``.  ``cand_chunk`` is the plain
-    version's memory knob."""
+    (csrc/render_depth.cu: fill, the table's entries set up, each entry
+    stamped within its row's tile, finish) once for the batch, counted in
+    ``render_depth_window_gather.launches``.
+    ``cand_chunk`` is the plain version's memory knob."""
     verts, cand_b, origin_b, single = _batched(verts_cam, cand, origin)
     st = None if slot_tile is None else (
         slot_tile[None] if single else slot_tile)

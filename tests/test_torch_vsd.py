@@ -233,11 +233,12 @@ class TestGatherRenderer:
         t_e = t_gt + np.array([0.004, -0.003, 0.006], np.float32)
         depth = np.full((480, 640), 1.1, np.float32)
         args = (R_e, t_e, R_gt, t_gt, depth, K, verts, faces, 0.1)
-        e_j, e_g = _vsd_pair(*args, renderer="gather")
-        e_s = vsd_t.vsd_err(*args, renderer="scatter", device="cpu")
-        assert np.all((e_g >= 0) & (e_g <= 1)) and e_g.max() > 0
-        np.testing.assert_array_equal(e_g, e_j)
-        np.testing.assert_array_equal(e_g, e_s)
+        # the port renders with its scatter form; JAX with either form
+        e_g, e_t = _vsd_pair(*args)
+        e_s = vsd_j.vsd_err(*args, renderer="scatter")
+        assert np.all((e_t >= 0) & (e_t <= 1)) and e_t.max() > 0
+        np.testing.assert_array_equal(e_t, e_g)
+        np.testing.assert_array_equal(e_t, e_s)
 
     def test_empty_candidates(self):
         verts, faces = J.square_mesh(half=0.05, z=1.0)
@@ -642,10 +643,10 @@ class TestHardMesh:
         depth = _gt_depth(verts + t, faces)
         t_est = t + np.array([0.002, -0.001, 0.003], np.float32)
         a = (R, t_est, R, t, depth, K, verts, faces, diameter)
-        e_g = vsd_t.vsd_err(*a, renderer="gather", device="cpu")
-        e_s = vsd_t.vsd_err(*a, renderer="scatter", device="cpu")
-        np.testing.assert_array_equal(e_g, e_s)
-        np.testing.assert_array_equal(e_g, vsd_j.vsd_err(*a))
+        e_t = vsd_t.vsd_err(*a, device="cpu")
+        np.testing.assert_array_equal(e_t, vsd_j.vsd_err(*a))
+        np.testing.assert_array_equal(
+            e_t, vsd_j.vsd_err(*a, renderer="scatter"))
 
     @pytest.mark.slow
     def test_batch_equals_single_on_hard_mesh(self, trefoil):

@@ -541,6 +541,71 @@ def test_cli_csv_rows_match_jax(cli_runs, cmd):
         assert [b["n"] for b in r["eval_t"]["timing"]] == [3, 1]
 
 
+def test_cli_eval_vsd_errors_match_jax(cli_runs, tmp_path, monkeypatch):
+    """cli eval --vsd --dataset ycbv of the bowl (its models_eval hull) on
+    the CPU: the port's per-frame VSD errors equal the JAX package's
+    vsd_err_batch on the same poses and test depths, which are the eval
+    CSV's rows, the tree's GT poses and its depth PNGs."""
+    import json
+
+    from PIL import Image
+
+    from test_torch_cli import _read_csv
+    from gdm_tpu.eval.vsd import vsd_err_batch as vsd_err_batch_j
+    from gdm_tpu_torch import cli as cli_t
+    from gdm_tpu_torch.eval import vsd as vsd_t
+
+    calls = []
+    orig = vsd_t.vsd_err_batch
+
+    def record(*args, **kw):
+        out = orig(*args, **kw)
+        # copies: the evaluator clears its lists after the call
+        calls.append(([list(a) if isinstance(a, list) else a
+                       for a in args], kw, out))
+        return out
+
+    monkeypatch.setattr(vsd_t, "vsd_err_batch", record)
+    res = cli_t.main(["eval", *cli_runs["common"], "--device", "cpu",
+                      "--vsd", "--output-dir", str(tmp_path)])
+    errs = np.asarray(res["errors"][OBJ_NAMES[BOWL]]["vsd"])
+    assert errs.shape == (4, 10) and len(calls) == 1
+    (poses, depths, K, verts, faces, diameter), kw, out = calls[0]
+    assert str(kw["device"]) == "cpu" and len(faces) > 0
+    np.testing.assert_array_equal(out, errs)
+    want = vsd_err_batch_j(poses, depths, K, verts, faces, diameter)
+    np.testing.assert_array_equal(errs, want)
+    assert 0 < errs.min() and errs.max() <= 1
+    # the random-weight fits miss, so the same again with the GT poses as
+    # the estimates, where the errors are small and spread over the taus
+    at_gt = [(R_g, t_g, R_g, t_g) for _, _, R_g, t_g in poses]
+    got = orig(at_gt, depths, K, verts, faces, diameter, device="cpu")
+    np.testing.assert_array_equal(
+        got, vsd_err_batch_j(at_gt, depths, K, verts, faces, diameter))
+    assert got.max() < 0.5
+
+    rows, keys = _read_csv(osp.join(str(tmp_path), "gt_ycbv-test.csv"))
+    root = cli_runs["root"]
+    for (scene, im, _), (R_e, t_e, R_g, t_g), depth in zip(keys, poses,
+                                                          depths):
+        np.testing.assert_array_equal(R_e, rows[(scene, im, BOWL)][0])
+        np.testing.assert_allclose(t_e, rows[(scene, im, BOWL)][1],
+                                   rtol=0, atol=1e-9)
+        sdir = osp.join(root, "test", f"{scene:06d}")
+        with open(osp.join(sdir, "scene_gt.json")) as f:
+            gt = json.load(f)[str(im)][0]
+        with open(osp.join(sdir, "scene_camera.json")) as f:
+            cam = json.load(f)[str(im)]
+        np.testing.assert_allclose(R_g, np.reshape(gt["cam_R_m2c"], (3, 3)),
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_allclose(t_g, np.asarray(gt["cam_t_m2c"]) / 1000.0,
+                                   rtol=1e-7, atol=0)      # f32 metres
+        png = np.asarray(Image.open(osp.join(sdir, f"depth/{im:06d}.png")))
+        np.testing.assert_allclose(
+            depth, png.astype(np.float32) * cam["depth_scale"] / 1000.0,
+            rtol=1e-6, atol=0)
+
+
 def test_cli_stacked_infer_equals_per_object(cli_runs):
     """infer --stacked over both objects (mixed batches) gives the
     per-object rows (tests/test_ycbv_e2e.py's stacked check)."""
