@@ -12,11 +12,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    shape [8*4096, 128] x [4096, 128], at the eval shape [128*4096, 128] x
    [4096, 128], at the shape of train's validation [24*4096, 128] x
    [4096, 128], at a ragged [1100, 128] x [700, 128], with exactly tied
-   mesh rows and with an all-zero scene row.  Scores agree within 1e-5,
+   mesh rows, with an all-zero scene row, at a ragged all-negative
+   [1100, 128] x [700, 128] (every true score < 0, so a zero-filled mesh
+   column would win if it were not masked), at C = 36 and 256 (a
+   ragged k chunk; one consumer warpgroup) and at [100, 4] x [300, 4],
+   [1, 128] x [700, 128] and [129, 128] x [1, 128].  Scores agree within 1e-5,
    indices agree on every row whose plain top-2 gap exceeds 1e-5, ties go
-   to the lowest index.  Median times of both at the three main-path shapes,
-   beside the bound: 2*R*M*C over the f32 FMA peak of this card (SMs x 128
-   lanes x 2 x its maximum SM clock).
+   to the lowest index.  The built library's SASS must hold HGMMA (the
+   tensor cores' wgmma; cuobjdump), and ptxas's register and spill report
+   is printed.  Median times of the kernel, the plain version and
+   ``torch.matmul`` alone (cuBLAS's f32 GEMM, TF32 off: a yardstick the
+   port never calls) at the three main-path shapes, beside the bound:
+   3*2*R*M*C (the three TF32 passes of f32-accurate products) over the
+   dense TF32 peak of this card (SMs x 1024 FMA x 2 x its maximum SM
+   clock), with 2*R*M*C over the f32 FMA peak (SMs x 128 lanes x 2 x that
+   clock) beside it.
 3. Serving: GeoMatch at the LMO widths (4096 points, 4096 mesh vertices,
    256^2 crop, 128-d features) with seeded random weights, served by
    gdm_tpu_torch.server.PoseService over HTTP from a PoseEngine of batch 8.  A
@@ -235,32 +245,38 @@ def unit_rows(n, c, g):
         torch.randn(n, c, device="cuda", generator=g), dim=-1)
 
 
-def fma_peak_flops() -> float:
-    """f32 FMA peak of card 0: SMs x 128 lanes x 2 FLOP x max SM clock."""
-    mhz = subprocess.run(
+def peak_flops(fma_per_sm: int = 128, what: str = "f32 FMA") -> float:
+    """Peak of card 0: SMs x FMAs per SM and clock (128 f32 FMA lanes;
+    1024 dense TF32 FMAs on the tensor cores) x 2 FLOP x max SM clock."""
+    mhz = float(subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.strip()
+        check=True).stdout.strip())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    peak = sms * 128 * 2 * float(mhz) * 1e6
-    log(f"  f32 FMA peak: {sms} SMs x 128 x 2 x {mhz} MHz = "
+    peak = sms * fma_per_sm * 2 * mhz * 1e6
+    log(f"  {what} peak: {sms} SMs x {fma_per_sm} x 2 x {mhz:.0f} MHz = "
         f"{peak / 1e12:.2f} TFLOP/s")
     return peak
 
 
-def bound_ms(shape, peak) -> tuple[float, str]:
-    """Least time for 2*R*M*C FLOP (the argmax of every scene row over
-    every mesh row) or for moving the bytes (both inputs read once, idx
-    and score written once) at 3.35 TB/s, whichever is larger."""
+def bound_ms(shape, tf32_peak, fma_peak) -> tuple[float, str, float]:
+    """Least time for the argmax of every scene row over every mesh row
+    with f32-accurate products: the three TF32 tensor-core passes,
+    3*2*R*M*C FLOP over the dense TF32 peak, or moving the bytes (both
+    inputs read once, idx and score written once) at 3.35 TB/s, whichever
+    is larger; beside it, 2*R*M*C over the f32 FMA peak."""
     r, m, c = shape
-    ops_ms = 2.0 * r * m * c / peak * 1e3
+    ops_ms = 3 * 2.0 * r * m * c / tf32_peak * 1e3
     bytes_ms = ((r + m) * c * 4 + r * (8 + 4)) / 3.35e12 * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms \
-        else (bytes_ms, "bytes")
+    fma_ms = 2.0 * r * m * c / fma_peak * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", fma_ms
+    return bytes_ms, "bytes", fma_ms
 
 
-def time_shape(sim, tag, shape, g, peak, reps):
-    """Kernel vs plain at ``shape``: agreement, median times, bound."""
+def time_shape(sim, tag, shape, g, peaks, reps):
+    """Kernel vs plain at ``shape``: agreement, median times of the
+    kernel, the plain version and the matmul alone, bound."""
     r, m, c = shape
     scene, mesh = unit_rows(r, c, g), unit_rows(m, c, g)
     idx, score = sim.cosine_argmax(scene, mesh)
@@ -270,32 +286,74 @@ def time_shape(sim, tag, shape, g, peak, reps):
     ms = median_ms(sim.cosine_argmax, scene, mesh, reps=reps)
     plain_ms = median_ms(sim.cosine_argmax_reference, scene, mesh,
                          reps=reps)
-    bms, by = bound_ms(shape, peak)
+    matmul_ms = median_ms(lambda: torch.matmul(scene, mesh.T), reps=reps)
+    bms, by, fma_ms = bound_ms(shape, *peaks)
+    tflops = 3 * 2.0 * r * m * c / ms / 1e9
     log(f"  median over {reps} launches at [{r},{c}]x[{m},{c}]: kernel "
-        f"{ms:.4f} ms, plain (matmul + max) {plain_ms:.4f} ms, bound "
-        f"{bms:.4f} ms ({by}; {2.0 * r * m * c / ms / 1e9:.2f} TFLOP/s "
-        f"achieved)")
+        f"{ms:.4f} ms, plain (matmul + max) {plain_ms:.4f} ms, matmul "
+        f"alone {matmul_ms:.4f} ms; bound {bms:.4f} ms ({by}; 3 TF32 "
+        f"passes), {100 * bms / ms:.1f}% of it; f32 FMA bound "
+        f"{fma_ms:.4f} ms; {tflops:.2f} TF32 TFLOP/s achieved, "
+        f"{100 * tflops * 1e12 / peaks[0]:.1f}% of the TF32 peak")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by}
+            "bound_ms": bms, "bound_by": by, "bound_fma_ms": fma_ms,
+            "matmul_ms": matmul_ms, "tf32_tflops": tflops}
+
+
+def hgmma_count() -> int:
+    """HGMMA instructions (the tensor cores' wgmma) in the SASS of the
+    built similarity library; fails if there are none."""
+    import shutil
+
+    from gdm_tpu_torch import _build
+
+    tool = shutil.which("cuobjdump") or osp.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    lib = osp.join(_build.BUILD_DIR, "libsimilarity.so")
+    sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    n = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"  SASS of {osp.basename(lib)}: {n} HGMMA instructions")
+    if not n:
+        fail("the similarity kernel's SASS holds no HGMMA")
+    return n
 
 
 def kernel_phase(sim):
-    """Agreement everywhere; times at the serving and eval shapes."""
+    """Agreement everywhere; times at the three main-path shapes."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    peak = fma_peak_flops()
+    n_hgmma = hgmma_count()
+    peaks = (peak_flops(1024, "dense TF32"), peak_flops())
     errs = []
-    at = {"serve": time_shape(sim, "serving shape", SERVE_SHAPE, g, peak,
+    at = {"serve": time_shape(sim, "serving shape", SERVE_SHAPE, g, peaks,
                               reps=20),
-          "eval": time_shape(sim, "eval shape", EVAL_SHAPE, g, peak,
+          "eval": time_shape(sim, "eval shape", EVAL_SHAPE, g, peaks,
                              reps=10),
           "train_val": time_shape(sim, "train validation shape",
-                                  TRAIN_VAL_SHAPE, g, peak, reps=20)}
+                                  TRAIN_VAL_SHAPE, g, peaks, reps=20)}
     errs += [v["max_abs_err"] for v in at.values()]
     torch.cuda.empty_cache()
 
     scene, mesh = unit_rows(1100, 128, g), unit_rows(700, 128, g)
     errs.append(check_argmax("ragged", *sim.cosine_argmax(scene, mesh),
                              scene, mesh))
+
+    # every true score < 0: a zero-filled column past M would score 0
+    scene, mesh = -unit_rows(1100, 128, g).abs(), unit_rows(700, 128, g).abs()
+    idx, score = sim.cosine_argmax(scene, mesh)
+    errs.append(check_argmax("all-negative ragged", idx, score, scene, mesh))
+    if int(idx.max()) >= 700 or float(score.max()) >= 0.0:
+        fail(f"all-negative ragged: idx max {int(idx.max())}, score max "
+             f"{float(score.max())}: a padded column won")
+
+    # a ragged k chunk; one consumer warpgroup; a box wider than C; one
+    # scene row; one mesh row
+    for r, m, c in ((1100, 700, 36), (1100, 700, 256), (100, 300, 4),
+                    (1, 700, 128), (129, 1, 128)):
+        scene, mesh = unit_rows(r, c, g), unit_rows(m, c, g)
+        errs.append(check_argmax(f"[{r},{c}]x[{m},{c}]",
+                                 *sim.cosine_argmax(scene, mesh),
+                                 scene, mesh))
 
     base = unit_rows(300, 128, g)
     mesh = torch.cat([base, base[:150]])      # rows 300+i duplicate row i
@@ -313,7 +371,7 @@ def kernel_phase(sim):
     if int(idx[5]) != 0 or float(score[5]) != 0.0:
         fail(f"all-zero row: idx {int(idx[5])}, score {float(score[5])}")
     log("  exact ties -> lowest index; all-zero row -> index 0: ok")
-    return max(errs), at
+    return max(errs), at, n_hgmma
 
 
 def random_weights(cfg, seed=SEED):
@@ -1264,7 +1322,7 @@ def vsd_phase(sim, workdir, eval_timing):
     """Workload (a) on the eval tree, then workload (b); launches by
     kernel summed over the main-path runs, and the renderers' timing (the
     gather form's launches, all by its check on (b)'s chunks, apart)."""
-    peak = fma_peak_flops()
+    peak = peak_flops()
     launches, timing_a = vsd_cli_runs(sim, workdir, eval_timing, peak)
     b_launches, timing, n_table = vsd_batch_runs(peak)
     for k, v in b_launches.items():
@@ -2730,7 +2788,7 @@ def main() -> int:
     for name in ("similarity", "render_depth"):
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or \
-                    "Compiling entry" in line:
+                    "Compiling entry" in line or "wgmma" in line:
                 log(f"  ptxas ({name}): {line.strip()}")
 
     t_phase = [time.perf_counter()]
@@ -2742,7 +2800,7 @@ def main() -> int:
         log(f"{name} phase")
 
     log("kernel phase")
-    err, at = kernel_phase(sim)
+    err, at, n_hgmma = kernel_phase(sim)
     phase("serving")
     launches_serve = slice_phase(sim)
     phase("eval")
@@ -2792,7 +2850,11 @@ def main() -> int:
         "plain_ms": at["eval"]["plain_ms"],
         "bound_ms": at["eval"]["bound_ms"],
         "bound_by": at["eval"]["bound_by"],
+        "bound_fma_ms": at["eval"]["bound_fma_ms"],
+        "matmul_ms": at["eval"]["matmul_ms"],
+        "tf32_tflops": at["eval"]["tf32_tflops"],
         "library_ms": None,
+        "sass_hgmma": n_hgmma,
         "shape": list(EVAL_SHAPE),
         "serve": dict(at["serve"], shape=list(SERVE_SHAPE)),
         "train_val": dict(at["train_val"], shape=list(TRAIN_VAL_SHAPE)),

@@ -154,3 +154,120 @@ def test_kernel_matches_plain_on_card():
                             > GAP).cuda()
     assert torch.equal(idx[sure], idx_r[sure])
     assert float((score - score_r).abs().max()) <= 1e-5
+
+
+# --- the CUDA kernel's arithmetic, emulated on the CPU -------------------
+# csrc/similarity.cu splits each f32 operand as x = hi + lo with
+# hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) and sums
+# lo_a.hi_b + hi_a.lo_b + hi_a.hi_b on the tensor cores (TF32 wgmma, f32
+# accumulators).  Here the split is exact and the three products are
+# summed in float64, so what is left is the split's own error: the
+# dropped lo.lo term and the rounding of lo, ~3 * 2^-22 for unit rows.
+
+SPLIT_TOL = 1e-6     # |split dot - float64 dot| for unit rows
+
+
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: round to 10 mantissa bits, ties away from zero
+    (add half an ulp to the magnitude bits, clear the 13 low bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    hi = _rna_tf32(x)
+    return hi, _rna_tf32(x - hi)
+
+
+def _split_dot(s: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """[R, M] dot products as the kernel forms them, summed in float64."""
+    sh, sl = (t.double() for t in _split(s))
+    mh, ml = (t.double() for t in _split(m))
+    return sl @ mh.T + sh @ ml.T + sh @ mh.T
+
+
+@pytest.mark.parametrize("x,want", [
+    (1.0, 1.0),
+    (1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10),       # a tie rounds away from 0
+    (-(1.0 + 2.0 ** -11), -(1.0 + 2.0 ** -10)),
+    (1.0 + 2.0 ** -11 - 2.0 ** -23, 1.0),        # below the tie rounds down
+    (1.0 + 3 * 2.0 ** -11, 1.0 + 2.0 ** -9),     # a tie above an odd ulp
+    (0.0, 0.0),
+])
+def test_rna_tf32_rounds_ties_away_from_zero(x, want):
+    got = _rna_tf32(torch.tensor([x], dtype=torch.float32))
+    assert float(got[0]) == want
+    assert int(got.view(torch.int32)[0]) & 0x1FFF == 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_parts_are_tf32_and_exact(seed):
+    """hi and lo carry 10 mantissa bits each, and hi + lo is within
+    2^-22 |x| of x (lo rounded to TF32)."""
+    x = torch.from_numpy(_unit(np.random.RandomState(seed), 64, 128))
+    hi, lo = _split(x)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert (err <= 2.0 ** -22 * x.double().abs()).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_dot_within_1e6_of_float64(seed):
+    rng = np.random.RandomState(seed)
+    s, m = _unit(rng, 512, 128), _unit(rng, 700, 128)
+    exact = torch.from_numpy(s).double() @ torch.from_numpy(m).double().T
+    err = float((_split_dot(torch.from_numpy(s), torch.from_numpy(m))
+                 - exact).abs().max())
+    assert err <= SPLIT_TOL, err
+
+
+@pytest.mark.parametrize("n,m", [(1024, 512), (1100, 700), (300, 4096)])
+def test_split_argmax_matches_plain(n, m):
+    """The emulated kernel's argmax and max against the plain f32 version
+    (the contract chip_smoke.py holds the card to): equal indices beyond
+    a 1e-5 top-2 gap, scores within 1e-5, ties to the lowest index."""
+    rng = np.random.RandomState(5)
+    s, mf = _unit(rng, n, 128), _unit(rng, m, 128)
+    score_e, idx_e = torch.max(
+        _split_dot(torch.from_numpy(s), torch.from_numpy(mf)), dim=-1)
+    idx, score = _port(s, mf)
+    sure = H.top2_gap(s, mf) > GAP
+    np.testing.assert_array_equal(idx_e.numpy()[sure], idx[sure])
+    np.testing.assert_allclose(score_e.numpy(), score, rtol=0, atol=1e-5)
+
+
+def test_split_argmax_all_negative_ragged():
+    """M = 700 (not a multiple of the kernel's 128-row mesh tiles) and
+    every true score negative: the emulation and the plain version pick
+    real mesh rows with negative scores."""
+    rng = np.random.RandomState(6)
+    s = -np.abs(_unit(rng, 256, 128))
+    mf = np.abs(_unit(rng, 700, 128))
+    score_e, idx_e = torch.max(
+        _split_dot(torch.from_numpy(s), torch.from_numpy(mf)), dim=-1)
+    idx, score = _port(s, mf)
+    assert (score < 0).all() and (score_e.numpy() < 0).all()
+    assert (idx < 700).all()
+    sure = H.top2_gap(s, mf) > GAP
+    np.testing.assert_array_equal(idx_e.numpy()[sure], idx[sure])
+
+
+@pytest.mark.cuda
+def test_kernel_all_negative_ragged_on_card():
+    """A zero-filled mesh row past M would score 0 and beat every real
+    row here; the kernel masks it by index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    s = -torch.nn.functional.normalize(
+        torch.randn(1100, 128, device="cuda", generator=g), dim=-1).abs()
+    m = torch.nn.functional.normalize(
+        torch.randn(700, 128, device="cuda", generator=g), dim=-1).abs()
+    idx, score = S.cosine_argmax(s, m)
+    idx_r, score_r = S.cosine_argmax_reference(s, m)
+    assert int(idx.max()) < 700 and float(score.max()) < 0
+    sure = torch.from_numpy(H.top2_gap(s.cpu().numpy(), m.cpu().numpy())
+                            > GAP).cuda()
+    assert torch.equal(idx[sure], idx_r[sure])
+    assert float((score - score_r).abs().max()) <= 1e-5
