@@ -27,23 +27,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    dense TF32 peak of this card (SMs x 1024 FMA x 2 x its maximum SM
    clock), with 2*R*M*C over the f32 FMA peak (SMs x 128 lanes x 2 x that
    clock) beside it.
-3. Serving: GeoMatch at the LMO widths (4096 points, 4096 mesh vertices,
-   256^2 crop, 128-d features) with seeded random weights, served by
-   gdm_tpu_torch.server.PoseService over HTTP from a PoseEngine of batch 8.  A
-   warm-up and three requests (batch 8, 3, 1) must give finite [b, 3, 4]
-   poses whose R is orthonormal with det +1 (or the miss sentinel); the
-   kernel must have launched once per served batch; the correspondences
-   the engine used must match the plain argmax on the same features.
-4. Eval: a synthetic BOP tree (LM-O object 1, 160 ``test`` frames at
+3. Serving: a synthetic BOP tree (LM-O object 1, 160 ``test`` frames at
    480x640, written by gdm_tpu_torch.data.synthetic) and seeded random
-   weights as <ckpt>/ape/geomatch.pth.tar go through
-   ``gdm_tpu_torch.cli eval`` at the LM-O preset and its eval batch of 128
-   (a full batch and a padded one of 32).  The table, CSV (160 rows) and
-   pickles must be written, every pose valid, and the kernel launched once
-   per batch, the warm-up included.  ``cli infer`` on the same tree must
-   give the eval CSV's rows and poses, and ``cli score`` of the eval CSV
-   its recalls and AUC exactly.  Prints per-batch device ms, the loader's
-   ms/sample, frames/s end to end and peak device memory.
+   weights (GeoMatch at the LMO widths: 4096 points, 4096 mesh vertices,
+   256^2 crop, 128-d features) as <ckpt>/ape/geomatch.pth.tar, the tree
+   of the phases below.  ``cli export-serving --batch-size 8`` of the
+   checkpoint, then ``cli serve`` of the artifact on a thread (its
+   PoseService over HTTP).  A warm-up and three requests (batch 8, 3, 1),
+   then 20 timed requests each at b=1 and b=8, must give finite [b, 3, 4]
+   poses whose R is orthonormal with det +1 (or the miss sentinel); the
+   kernel must have launched once per served batch, and every batch's
+   correspondences must match the plain argmax on the same features.
+   Prints p50 and p95 latency (client clock, HTTP included) at b=1 and
+   b=8.  Then ``python -m gdm_tpu_torch.cli serve`` in a process of its
+   own answers /healthz and one /pose, and exits 0 on SIGINT.
+4. Eval: that tree and checkpoint go through ``gdm_tpu_torch.cli eval``
+   at the LM-O preset and its eval batch of 128 (a full batch and a
+   padded one of 32).  The table, CSV (160 rows) and pickles must be
+   written, every pose valid, and the kernel launched once per batch, the
+   warm-up included.  ``cli infer --save-viz`` on the same tree must give
+   the eval CSV's rows and poses and 160 overlay PNGs that imio decodes,
+   and ``cli score`` of the eval CSV its recalls and AUC exactly.  Prints
+   per-batch device ms, the loader's ms/sample, frames/s end to end and
+   peak device memory.  Profile: ``cli eval --profile-dir`` of the same
+   tree; from the chrome trace's kernel (and copy) events, the share of
+   each timed batch's window (its ``cli.BATCH_SPAN`` range) in which the
+   device was busy.
 5. Refine: ``cli eval --refine ransac|icp|meanshift`` at b=128 on the
    eval phase's tree and checkpoint: one kernel launch per batch plus the
    warm-up, every batch's correspondences held against the plain argmax,
@@ -89,7 +98,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 8. Train: a synthetic LM-O tree (object 1, 240 JPEG ``train_pbr`` frames
    and 48 ``test`` frames) goes through ``gdm_tpu_torch.cli train`` at the
    LM-O widths and ``train_batch_size`` 24: two epochs validating each
-   (the similarity kernel must launch), then ``--epochs 3 --resume``
+   (the similarity kernel must launch), starting from a seeded state
+   dict under torchvision's resnet18 names (``--pretrained-backbone``:
+   every tensor but ``fc`` held in the model bit for bit before the first
+   step), then ``--epochs 3 --resume``
    (one more epoch, from the checkpoint), then ``cli eval
    --torch-checkpoint <ckpt_root>/checkpoints`` of the result.  Every
    batch that validation and that eval fit is held against the plain
@@ -145,9 +157,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    plain checks' time), frames/s, step times and peak memory of each
    run.
 
-Output: per-request latency lines, then one JSON line with the kernels,
-the card's name and power limit, and the last line {"ok": true,
-"device": {...}}.  Nothing of JAX or of the JAX package is imported: the
+Output: per-request latency lines, then one JSON line with the kernels
+(``launches_serve`` the CLI-served batches, ``launches_profile`` the
+traced eval's), the card's name and power limit, and the last line
+{"ok": true, "device": {...}}.  Nothing of JAX or of the JAX package is imported: the
 script blocks ``jax``, ``flax`` and ``gdm_tpu`` before any import, so
 only ``gdm_tpu_torch`` runs.
 """
@@ -169,11 +182,14 @@ for _name in ("jax", "flax", "gdm_tpu"):   # the port runs alone
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+ROOT = osp.dirname(osp.abspath(__file__))
 GAP = 1e-5          # top-2 gap below which an index flip is a near-tie
 SCORE_TOL = 1e-5    # |kernel score - plain score|
 POSE_TOL = 1e-5     # |infer pose - eval pose|, same frames and weights
 SEED = 0
-SERVE_SHAPE = (8 * 4096, 4096, 128)      # R, M, C at the served batch 8
+SERVE_BATCH = 8
+LATENCY_REQUESTS = 20    # timed requests at each of b=1 and b=8
+SERVE_SHAPE = (SERVE_BATCH * 4096, 4096, 128)   # R, M, C served
 EVAL_SHAPE = (128 * 4096, 4096, 128)     # R, M, C at the LM-O eval batch
 EVAL_FRAMES = 160
 TRAIN_FRAMES, VAL_FRAMES, TRAIN_BATCH = 240, 48, 24
@@ -477,57 +493,160 @@ class FitChecks:
         PoseEngine.infer = self.orig
 
 
-def slice_phase(sim):
+def write_eval_tree(workdir):
+    """The synthetic LM-O tree (object 1, EVAL_FRAMES ``test`` frames at
+    480x640) and its seeded random checkpoint <ckpt>/ape/geomatch.pth.tar
+    that the serving, eval, refine, VSD and DGCNN phases read."""
     from gdm_tpu_torch.configs import LMO as cfg
-    from gdm_tpu_torch.data.synthetic import make_object
-    from gdm_tpu_torch.eval import pose_fit
-    from gdm_tpu_torch.serve import PoseEngine
-    from gdm_tpu_torch.server import PoseService, make_server, request_poses
+    from gdm_tpu_torch.data.synthetic import make_object, \
+        write_synthetic_bop_root
 
-    im, n_sample = cfg.data.input_size, cfg.data.num_sample_points
-    rng = np.random.RandomState(SEED)
-    mesh_fps = make_object(cfg.model.n_mesh_node, rng, radius=0.08)
-    sd = random_weights(cfg)
+    root, ckpt = osp.join(workdir, "lmo"), osp.join(workdir, "ckpt")
+    t0 = time.perf_counter()
+    write_synthetic_bop_root(
+        root, make_object(cfg.data.model_pt_num, np.random.RandomState(SEED)),
+        n_frames=EVAL_FRAMES, subsets=("test",), im_hw=cfg.data.img_hw,
+        seed=SEED, obj_id=1)
+    os.makedirs(osp.join(ckpt, "ape"))
+    torch.save({"model_state": random_weights(cfg)},
+               osp.join(ckpt, "ape", "geomatch.pth.tar"))
+    log(f"  synthetic BOP tree ({EVAL_FRAMES} test frames, "
+        f"{cfg.data.img_hw[0]}x{cfg.data.img_hw[1]}) and checkpoint written "
+        f"in {time.perf_counter() - t0:.2f} s")
+    return root, ckpt
+
+
+def serve_subprocess(art_root, im, n_sample, rng):
+    """``python -m gdm_tpu_torch.cli serve`` as a process of its own:
+    /healthz and one /pose request answered, then exit 0 on SIGINT."""
+    import signal
+    from urllib.request import urlopen
+
+    from gdm_tpu_torch.server import request_poses
 
     t0 = time.perf_counter()
-    engine = PoseEngine(cfg, mesh_fps, sd, "cuda", batch=8)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gdm_tpu_torch.cli", "serve", "--artifact",
+         art_root, "--port", "0"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), stderr=subprocess.PIPE,
+        text=True)
+    watchdog = threading.Timer(300.0, proc.kill)
+    watchdog.start()
+    try:
+        url = None
+        for line in proc.stderr:
+            if "serving 1 object(s) on " in line:
+                url = line.split(" on ")[1].split()[0]
+                break
+        if url is None:
+            fail(f"cli serve process gave no serving line (rc "
+                 f"{proc.poll()})")
+        ready = time.perf_counter() - t0
+        with urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if not health["ok"] or health["objects"] != ["ape"]:
+            fail(f"cli serve process /healthz: {health}")
+        poses, _ = request_poses(url, make_request(1, im, n_sample, rng))
+        check_poses(poses, 1)
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
+    if rc != 0:
+        fail(f"cli serve process exited {rc} on SIGINT")
+    log(f"  python -m gdm_tpu_torch.cli serve: serving {ready:.2f} s after "
+        f"start (build check, engine, warm-up), /healthz {health['objects']}"
+        f", one /pose answered, exit {rc} on SIGINT")
+
+
+def serving_phase(sim, workdir, smi):
+    """``cli export-serving --batch-size 8`` of the eval tree's checkpoint,
+    then ``cli serve`` of the artifact on a thread: the warm-up, requests
+    of b=8, 3 and 1, then LATENCY_REQUESTS timed requests each at b=1 and
+    b=8, every served batch's correspondences held against the plain
+    argmax and every pose valid; then the CLI in a process of its own.
+    Returns the kernel launches of the served run and the latencies."""
+    from gdm_tpu_torch import cli
+    from gdm_tpu_torch.configs import LMO as cfg
+    from gdm_tpu_torch.eval import pose_fit
+    from gdm_tpu_torch.server import request_poses
+
+    root, ckpt = osp.join(workdir, "lmo"), osp.join(workdir, "ckpt")
+    art_root = osp.join(workdir, "serving", "lmo")
+    im, n_sample = cfg.data.input_size, cfg.data.num_sample_points
+    t0 = time.perf_counter()
+    meta = cli.main(["export-serving", "--dataset", "lmo", "--data-root",
+                     root, "--torch-checkpoint", ckpt, "--cls-id", "1",
+                     "--batch-size", str(SERVE_BATCH), "--exact-knn",
+                     "--out", osp.join(art_root, "ape")])
+    log(f"  cli export-serving in {time.perf_counter() - t0:.2f} s: "
+        f"{sorted(os.listdir(osp.join(art_root, 'ape')))}, raw_spec "
+        f"{meta['raw_spec']}")
+    rng = np.random.RandomState(SEED)
+    sim.cosine_argmax.launches = 0
+    t0 = time.perf_counter()
+    service, server = cli.start_server(cli.build_parser().parse_args(
+        ["serve", "--artifact", art_root, "--port", "0"]))
     torch.cuda.synchronize()
-    log(f"  engine built (weights, mesh graph, mesh features) in "
+    log(f"  cli serve: engine built and warmed up (b={SERVE_BATCH}) in "
         f"{time.perf_counter() - t0:.2f} s")
-    service = PoseService({"lmo_synth": engine})
-    server = make_server(service, host="127.0.0.1", port=0)
+    engine = service.engines["ape"]
+    check_fit_indices(engine.last_fit, sim, pose_fit, "warm-up batch")
+    n_batches = 1
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
-    host, port = server.server_address[:2]
-    url = f"http://{host}:{port}"
+    url = "http://%s:%d" % server.server_address[:2]
     lat = {}
     try:
-        sim.cosine_argmax.launches = 0
-        t0 = time.perf_counter()
-        service.warmup()
-        log(f"  warm-up batch (b=8): {(time.perf_counter() - t0) * 1e3:.2f}"
-            " ms")
-        check_fit_indices(engine.last_fit, sim, pose_fit)
-        for b in (8, 3, 1):
+        for b in (SERVE_BATCH, 3, 1):
             raw = make_request(b, im, n_sample, rng)
             t0 = time.perf_counter()
             poses, compute_ms = request_poses(url, raw)
             ms = (time.perf_counter() - t0) * 1e3
-            lat[b] = (ms, compute_ms)
             n_fit = check_poses(poses, b)
             log(f"  request b={b}: latency {ms:.2f} ms (server compute "
                 f"{compute_ms:.2f} ms), {n_fit}/{b} frames fitted")
             check_fit_indices(engine.last_fit, sim, pose_fit)
+            n_batches += 1
+        for b in (1, SERVE_BATCH):
+            raws = [make_request(b, im, n_sample, rng)
+                    for _ in range(LATENCY_REQUESTS)]
+            ms, compute = [], []
+            for raw in raws:
+                t0 = time.perf_counter()
+                poses, compute_ms = request_poses(url, raw)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                compute.append(compute_ms)
+                check_poses(poses, b)
+                check_fit_indices(engine.last_fit, sim, pose_fit,
+                                  f"latency b={b} batch {len(ms)}")
+                n_batches += 1
+            lat[b] = {"p50_ms": float(np.percentile(ms, 50)),
+                      "p95_ms": float(np.percentile(ms, 95)),
+                      "compute_p50_ms": float(np.percentile(compute, 50))}
         launches = sim.cosine_argmax.launches
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
-    if launches != 4:
-        fail(f"cosine_argmax kernel launched {launches} times for 4 served "
-             "batches (warm-up + 3 requests)")
-    log(f"  kernel launches in the served run: {launches} (4 batches)")
-    return launches
+    for b, v in lat.items():
+        log(f"  {smi}: served latency at b={b} over {LATENCY_REQUESTS} "
+            f"requests (client clock, HTTP included, each request's plain "
+            f"check after its reply): p50 {v['p50_ms']:.2f} ms, p95 "
+            f"{v['p95_ms']:.2f} ms (numpy percentiles); server compute p50 "
+            f"{v['compute_p50_ms']:.2f} ms")
+    if launches != n_batches:
+        fail(f"cosine_argmax kernel launched {launches} times for "
+             f"{n_batches} served batches")
+    log(f"  kernel launches in the served run: {launches} ({n_batches} "
+        "batches: the warm-up, 3 requests, 2 x "
+        f"{LATENCY_REQUESTS} timed), each held against the plain argmax")
+    serve_subprocess(art_root, im, n_sample, rng)
+    return launches, lat
 
 
 def read_csv_poses(path):
@@ -603,22 +722,10 @@ def eval_phase(sim, workdir):
     run."""
     from gdm_tpu_torch import cli
     from gdm_tpu_torch.configs import LMO as cfg
-    from gdm_tpu_torch.data.synthetic import make_object, \
-        write_synthetic_bop_root
+    from gdm_tpu_torch.data.imio import imread_rgb
 
     root, ckpt = osp.join(workdir, "lmo"), osp.join(workdir, "ckpt")
     out, batch = osp.join(workdir, "out"), cfg.solver.val_batch_size
-    t0 = time.perf_counter()
-    write_synthetic_bop_root(
-        root, make_object(cfg.data.model_pt_num, np.random.RandomState(SEED)),
-        n_frames=EVAL_FRAMES, subsets=("test",), im_hw=cfg.data.img_hw,
-        seed=SEED, obj_id=1)
-    os.makedirs(osp.join(ckpt, "ape"))
-    torch.save({"model_state": random_weights(cfg)},
-               osp.join(ckpt, "ape", "geomatch.pth.tar"))
-    log(f"  synthetic BOP tree ({EVAL_FRAMES} test frames, "
-        f"{cfg.data.img_hw[0]}x{cfg.data.img_hw[1]}) and checkpoint written "
-        f"in {time.perf_counter() - t0:.2f} s")
     workers = 8
     log(f"  host CPUs this process may run on: "
         f"{len(os.sched_getaffinity(0))} (os.cpu_count() {os.cpu_count()})")
@@ -662,11 +769,20 @@ def eval_phase(sim, workdir):
     log(f"  eval CSV: {len(poses)} rows, {n_fit} fitted, every R a rotation"
         " or the miss sentinel")
 
-    infer_csv = osp.join(out, "infer.csv")
+    infer_csv, viz = osp.join(out, "infer.csv"), osp.join(out, "viz")
     sim.cosine_argmax.launches = 0
-    cli.main(["infer", *common, "--output", infer_csv])
+    t0 = time.perf_counter()
+    cli.main(["infer", *common, "--output", infer_csv, "--save-viz", viz])
+    wall = time.perf_counter() - t0
     if sim.cosine_argmax.launches != len(timing) + 1:
         fail(f"infer launched the kernel {sim.cosine_argmax.launches} times")
+    pngs = sorted(os.listdir(viz))
+    shapes = {imread_rgb(osp.join(viz, n)).shape for n in pngs}
+    if len(pngs) != EVAL_FRAMES or shapes != {(cfg.data.input_size,) * 2
+                                              + (3,)}:
+        fail(f"infer --save-viz: {len(pngs)} PNGs of shapes {shapes}")
+    log(f"  infer --save-viz: {len(pngs)} PNGs ({pngs[0]} ...), each "
+        f"decoded by imio to {shapes.pop()}; infer {wall:.2f} s end to end")
     inferred = read_csv_poses(infer_csv)
     if list(inferred) != list(poses):
         fail("infer CSV rows differ from eval's")
@@ -686,6 +802,77 @@ def eval_phase(sim, workdir):
     log(f"  score of the eval CSV reproduces eval's recalls exactly and its "
         f"AUC {res['auc']['ape']:.6f} to {dauc:.3g}")
     return launches, timing
+
+
+def busy_share(events, lo, hi):
+    """(device-busy microseconds, kernels) within [lo, hi]: the union of
+    the trace's kernel, memcpy and memset intervals clipped to it."""
+    spans = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                   for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and e["ts"] < hi and e["ts"] + e["dur"] > lo)
+    busy, end = 0.0, lo
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, sum(1 for e in events if e.get("cat") == "kernel"
+                     and lo <= e["ts"] < hi)
+
+
+def profile_run(sim, workdir, smi):
+    """``cli eval --profile-dir`` on the eval tree (one object, two b=128
+    batches and the warm-up): the device-busy share of each timed batch's
+    window (its BATCH_SPAN range on the host, which ends after a
+    synchronise), from the trace's kernel events.  Returns the kernel
+    launches and the shares."""
+    from gdm_tpu_torch import cli
+
+    root, ckpt = osp.join(workdir, "lmo"), osp.join(workdir, "ckpt")
+    prof = osp.join(workdir, "profile")
+    sim.cosine_argmax.launches = 0
+    t0 = time.perf_counter()
+    res = cli.main(["eval", "--dataset", "lmo", "--data-root", root,
+                    "--torch-checkpoint", ckpt, "--cls-id", "1",
+                    "--exact-knn", "--output-dir",
+                    osp.join(workdir, "out_profile"), "--profile-dir", prof])
+    wall = time.perf_counter() - t0
+    launches = sim.cosine_argmax.launches
+    if launches != len(res["timing"]) + 1:
+        fail(f"profiled eval launched the kernel {launches} times for "
+             f"{len(res['timing'])} batches + the warm-up")
+    (trace,) = os.listdir(prof)
+    path = osp.join(prof, trace)
+    t0 = time.perf_counter()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("name") == cli.BATCH_SPAN
+                   and e.get("cat") == "user_annotation")
+    if len(spans) != len(res["timing"]):
+        fail(f"{len(spans)} batch ranges in the trace for "
+             f"{len(res['timing'])} batches")
+    log(f"  cli eval --profile-dir: {wall:.2f} s end to end, trace "
+        f"{os.path.getsize(path) / 2**20:.1f} MiB, {len(events)} events "
+        f"(read in {time.perf_counter() - t0:.2f} s)")
+    shares, by_name = [], {}
+    for i, ((lo, hi), b) in enumerate(zip(spans, res["timing"])):
+        busy, n_kernels = busy_share(events, lo, hi)
+        shares.append(busy / (hi - lo))
+        log(f"  {smi}: traced eval batch {i} ({b['n']} frames padded to "
+            f"the eval batch): window {(hi - lo) / 1e3:.2f} ms (host clock "
+            f"{b['device_ms']:.2f} ms), {n_kernels} kernels, device busy "
+            f"{busy / 1e3:.2f} ms = {shares[-1]:.1%}, idle "
+            f"{1 - shares[-1]:.1%}")
+        for e in events:
+            if e.get("cat") == "kernel" and lo <= e["ts"] < hi:
+                by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    total = sum(by_name.values())
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    kernel time over the {len(spans)} batches: "
+            f"{us / 1e3 / len(spans):.2f} ms per batch "
+            f"({us / total:.1%}) {name[:100]}")
+    return launches, shares
 
 
 def refine_eval_runs(sim, workdir, base_timing):
@@ -1874,6 +2061,83 @@ def step_loop_rates(steps, cold=2, prefetch=2):
     return out
 
 
+def write_torchvision_resnet18(path, seed=SEED):
+    """A seeded state dict under torchvision's resnet18 names and shapes
+    (its fc head and BN step counters included), saved as ``.pth``: what
+    ``--pretrained-backbone`` reads from an ImageNet file."""
+    g = np.random.RandomState(seed)
+    sd = {}
+
+    def conv(name, c_out, c_in, k):
+        sd[f"{name}.weight"] = (g.randn(c_out, c_in, k, k)
+                                * np.sqrt(2.0 / (c_in * k * k)))
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = 1.0 + 0.1 * g.randn(c)
+        sd[f"{name}.bias"] = 0.1 * g.randn(c)
+        sd[f"{name}.running_mean"] = 0.1 * g.randn(c)
+        sd[f"{name}.running_var"] = g.uniform(0.5, 1.5, c)
+        sd[f"{name}.num_batches_tracked"] = np.int64(g.randint(1, 10 ** 6))
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    c_in = 64
+    for layer, planes in enumerate((64, 128, 256, 512), 1):
+        for blk in range(2):
+            p = f"layer{layer}.{blk}"
+            conv(f"{p}.conv1", planes, c_in, 3)
+            bn(f"{p}.bn1", planes)
+            conv(f"{p}.conv2", planes, planes, 3)
+            bn(f"{p}.bn2", planes)
+            if blk == 0 and c_in != planes:
+                conv(f"{p}.downsample.0", planes, c_in, 1)
+                bn(f"{p}.downsample.1", planes)
+            c_in = planes
+    sd["fc.weight"] = 0.01 * g.randn(1000, 512)
+    sd["fc.bias"] = np.zeros(1000)
+    sd = {k: torch.from_numpy(np.asarray(
+        v, np.int64 if k.endswith("num_batches_tracked") else np.float32))
+        for k, v in sd.items()}
+    torch.save(sd, path)
+    return sd
+
+
+class PretrainedCheck:
+    """While active, each ``load_pretrained_backbone`` that ``cli train``
+    makes is held against the file: every entry but ``fc.*`` loaded, bit
+    for bit, into the model's trunk."""
+
+    def __init__(self, sd):
+        self.sd, self.n = sd, 0
+
+    def __enter__(self):
+        from gdm_tpu_torch.train import import_torch
+
+        self.mod, self.orig = import_torch, import_torch.load_pretrained_backbone
+
+        def load(model, w):
+            out = self.orig(model, w)
+            got = {import_torch.torchvision_key(k): v
+                   for k, v in model.state_dict().items()
+                   if import_torch.torchvision_key(k)}
+            want = [k for k in self.sd if not k.startswith("fc.")]
+            bad = [k for k in want if k not in got
+                   or not torch.equal(got[k].cpu(), self.sd[k])]
+            if bad:
+                fail(f"--pretrained-backbone: {len(bad)} of {len(want)} "
+                     f"tensors not loaded as in the file ({bad[:3]})")
+            log(f"  --pretrained-backbone: all {len(want)} trunk tensors of "
+                "the file in the model, bit for bit, before the first step")
+            self.n += 1
+            return out
+
+        import_torch.load_pretrained_backbone = load
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.load_pretrained_backbone = self.orig
+
+
 def train_phase(sim, workdir):
     """cli train (2 epochs, validating), --resume to 3 epochs, cli eval of
     the result; step parity; the fixed-batch overfit and timings.
@@ -1898,13 +2162,19 @@ def train_phase(sim, workdir):
               "--eval-every", "1", "--ckpt-root", ckpt_root,
               "--num-workers", "8", "--opt",
               "solver.checkpoint_every_epochs=1"]
+    tv_path = osp.join(workdir, "resnet18_torchvision.pth")
+    tv = write_torchvision_resnet18(tv_path)
     launches, steps = 0, []
-    for extra in (["--epochs", "2"], ["--epochs", "3", "--resume"]):
+    for extra in (["--epochs", "2", "--pretrained-backbone", tv_path],
+                  ["--epochs", "3", "--resume"]):
         torch.cuda.reset_peak_memory_stats()
         sim.cosine_argmax.launches = 0
         t0 = time.perf_counter()
-        with FitChecks(sim, f"train {' '.join(extra)} validation") as fc:
+        with FitChecks(sim, f"train {' '.join(extra)} validation") as fc, \
+                PretrainedCheck(tv) as pc:
             res = cli.main(common + extra)
+        if pc.n != ("--pretrained-backbone" in extra):
+            fail(f"cli train {' '.join(extra)}: {pc.n} backbone loads")
         wall = time.perf_counter() - t0 - fc.seconds
         n_launch = sim.cosine_argmax.launches
         launches += n_launch
@@ -2769,7 +3039,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    log(smi.splitlines()[0])
+    smi_line = smi.splitlines()[0]
+    log(smi_line)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2802,12 +3073,16 @@ def main() -> int:
     log("kernel phase")
     err, at, n_hgmma = kernel_phase(sim)
     phase("serving")
-    launches_serve = slice_phase(sim)
-    phase("eval")
-    # the dgcnn phase runs on the eval and train phases' trees
+    # the serving, refine, vsd and dgcnn phases run on the eval phase's
+    # tree, the dgcnn phase also on the train phase's
     with tempfile.TemporaryDirectory() as eval_dir, \
             tempfile.TemporaryDirectory() as train_dir:
+        write_eval_tree(eval_dir)
+        launches_serve, _ = serving_phase(sim, eval_dir, smi_line)
+        phase("eval")
         launches_eval, eval_timing = eval_phase(sim, eval_dir)
+        phase("profile")
+        launches_profile, _ = profile_run(sim, eval_dir, smi_line)
         phase("refine")
         launches_refine, _ = refine_phase(sim, eval_dir, eval_timing)
         phase("vsd")
@@ -2836,9 +3111,10 @@ def main() -> int:
         "launches": (launches_eval + launches_serve + launches_train
                      + launches_refine + launches_stacked
                      + launches_vsd["cosine_argmax"] + launches_ycbv
-                     + launches_dgcnn),
+                     + launches_dgcnn + launches_profile),
         "launches_eval": launches_eval,
         "launches_serve": launches_serve,
+        "launches_profile": launches_profile,
         "launches_train": launches_train,
         "launches_refine": launches_refine,
         "launches_stacked": launches_stacked,
@@ -2872,7 +3148,7 @@ def main() -> int:
         ("render_depth_gather", "gdm_tpu/ops/render_depth.py:347"),
         # what eval/vsd renders with
         ("render_depth_scatter", "gdm_tpu/ops/render_depth.py:96"))]}))
-    log(smi.splitlines()[0])
+    log(smi_line)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": 1}}))

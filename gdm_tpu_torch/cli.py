@@ -1,37 +1,47 @@
-"""Command line of the port: training, evaluation, deployment inference
-and offline scoring of single-object GeoMatch on a BOP dataset.
+"""Command line of the port: training, evaluation, deployment inference,
+offline scoring and serving of single-object GeoMatch on a BOP dataset.
 
     python -m gdm_tpu_torch.cli train --dataset lmo --data-root DIR \\
         --cls-id 1 --ckpt-root train_log [--epochs 50] [--resume] \\
-        [--eval-every 5]
+        [--eval-every 5] [--pretrained-backbone resnet18.pth]
     python -m gdm_tpu_torch.cli eval --dataset lmo --data-root DIR \\
         --torch-checkpoint CKPT --exact-knn [--cls-id 1] \\
-        [--refine {ransac,icp,meanshift}] [--icp-reject M] [--vsd]
+        [--refine {ransac,icp,meanshift}] [--icp-reject M] [--vsd] \\
+        [--save-viz DIR]
     python -m gdm_tpu_torch.cli infer --dataset lmo --data-root DIR \\
         --torch-checkpoint CKPT --exact-knn --output results.csv \\
-        [--refine ...] [--stacked [--stacked-schedule by_class|vmap] \\
-        [--stacked-group 4]]
+        [--refine ...] [--save-viz DIR] [--stacked [--stacked-schedule \\
+        by_class|vmap] [--stacked-group 4]]
     python -m gdm_tpu_torch.cli score --dataset lmo --data-root DIR \\
         --csv results.csv [--vsd]
+    python -m gdm_tpu_torch.cli export-serving --dataset lmo \\
+        --data-root DIR --cls-id 1 [--torch-checkpoint CKPT | \\
+        --ckpt-root train_log] [--batch-size 8] [--out DIR]
+    python -m gdm_tpu_torch.cli serve --artifact serving/lmo \\
+        [--host 127.0.0.1] [--port 8360] [--no-warmup]
 
-Counterpart of gdm_tpu/cli.py's ``train``, ``eval``, ``infer``
-(per-object loop) and ``score``, with its flags wherever they apply.
-``train`` writes ``<ckpt_root>/checkpoints/<object name>/`` (train/
-checkpoint.py), whose ``geomatch.pth.tar`` is what ``eval
---torch-checkpoint <ckpt_root>/checkpoints`` reads, and the metrics
-stream ``<ckpt_root>/metrics/<object name>.jsonl``.
+Counterpart of gdm_tpu/cli.py, with its flags wherever they apply and
+``--device`` on every subcommand.  ``train`` writes
+``<ckpt_root>/checkpoints/<object name>/`` (train/checkpoint.py), whose
+``geomatch.pth.tar`` is what ``eval --torch-checkpoint
+<ckpt_root>/checkpoints`` reads, and the metrics stream
+``<ckpt_root>/metrics/<object name>.jsonl``;
+``--pretrained-backbone`` (or ``model.pretrained_backbone``) starts its
+ResNet trunk from a torchvision checkpoint (train/import_torch.py).
 ``CKPT/<object name>/geomatch.pth.tar`` holds each object's
-reference-format weights (orbax checkpoints are the JAX package's).  Each object gets one
-serve.PoseEngine at the eval batch (``solver.val_batch_size``, 128 on
-LM-O); the loader's batches are padded to it, the first is run once
-more as a warm-up, and each frame's ``time`` is the batch's device time
-(up to a synchronise) over the batch size.  The run is on the GPU unless
-``--device cpu`` asks for the CPU; without CUDA, ``--device cuda``
-raises.
+reference-format weights (orbax checkpoints are the JAX package's).
+Each object gets one serve.PoseEngine at the eval batch
+(``solver.val_batch_size``, 128 on LM-O); the loader's batches are padded
+to it, the first is run once more as a warm-up, and each frame's
+``time`` is the batch's device time (up to a synchronise) over the batch
+size.  The run is on the GPU unless ``--device cpu`` asks for the CPU;
+without CUDA, ``--device cuda`` raises.
 
 ``--vsd`` adds the BOP VSD errors, their recall row and AR_VSD with the
 combined BOP19 AR, for every object with a ``models_eval`` PLY that has
-faces; the renders run on ``--device`` (eval/vsd.py).
+faces; the renders run on ``--device`` (eval/vsd.py).  ``--save-viz DIR``
+writes one pose overlay per frame (utils/viz.py), prediction green and,
+in ``eval``, the GT blue, as ``DIR/<object>_<scene>_<image>[_<n>].png``.
 
 ``--refine`` refines every fitted pose (eval/pose_fit.apply_refine); the
 ICP gate is ``--icp-reject`` metres, or else ``data.nn_dist_th`` times
@@ -39,6 +49,17 @@ the object's diameter.  ``infer --stacked`` interleaves the objects'
 frames round-robin, so that every batch mixes objects, and sends each
 row to its object's model (eval/multimodel.MultiObjectEngine) with that
 object's ICP gate.
+
+``export-serving`` writes one object's serving artifact (serve.py: its
+meta, weights and mesh; ``--platforms`` records nothing in the port) to
+``--out`` or ``serving/<dataset>/<object name>``, from
+``--torch-checkpoint`` or the newest checkpoint of ``train --ckpt-root``,
+and refuses untrained weights.  ``serve`` builds one engine per artifact
+(server.load_artifact_tree), warms each up unless ``--no-warmup``, and
+answers ``POST /pose``, ``GET /healthz`` and ``GET /meta`` (server.py)
+until SIGINT.  ``--profile-dir DIR`` (every subcommand) writes one
+``torch.profiler`` chrome trace of the command into DIR
+(utils/logging.profiler_trace).
 
 The model is built as the JAX CLI builds it (models/build.build_model):
 ``--opt model.backbone=dgcnn`` gives GeoMatchDGCNN (config 5: no KNN
@@ -53,15 +74,15 @@ counts.
 
 The KNN pyramid and the DGCNN graphs are exact: it is the port's only
 mode.  What the JAX CLI offers and the port does not yet
-(``--save-viz``, ``--model-shards``, and for ``train`` also
-``--pretrained-backbone``, ``--multihost`` and ``--devices`` > 1)
-raises, naming the ROADMAP queue 1 item that brings it; ``infer
---stacked`` needs the randla_spline backbone, as in the JAX CLI.
+(``--model-shards`` > 1, ``--multihost`` and ``--devices`` > 1) raises,
+naming the ROADMAP queue 1 item that brings it; ``infer --stacked`` needs
+the randla_spline backbone, as in the JAX CLI.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import logging
 import os
@@ -73,12 +94,13 @@ import numpy as np
 # a distance block of the KNN pyramid holds at most this many f32
 # entries (4 GiB); see knn_chunk_for
 KNN_BLOCK_ELEMS = 1 << 30
+# what --save-viz draws on: the input crop, its intrinsics, the GT pose
+VIZ_KEYS = ("rgb_u8", "K_crop", "RT")
+# the profiler range (--profile-dir) of each timed engine batch
+BATCH_SPAN = "gdm_tpu_torch.batch"
 
 _NOT_PORTED = {
     "model_shards": "mesh-column sharding (ROADMAP queue 1 item 10)",
-    "save_viz": "pose overlays (ROADMAP queue 1 item 11e)",
-    "pretrained_backbone": "the torchvision ResNet init of the CNN branch "
-                           "(ROADMAP queue 1 item 11d)",
     "multihost": "multi-process training (ROADMAP queue 1 item 9)",
 }
 
@@ -288,15 +310,17 @@ def _object_engine(cfg, args, obj_name, mesh_fps, device, batch, log,
                       refine=args.refine, icp_reject=icp_reject)
 
 
-def _run_batches(engine, ds, batch_size, num_workers, timing):
+def _run_batches(engine, ds, batch_size, num_workers, timing, keep=()):
     """Yield (meta row, det, pose [3, 4] float64, seconds per frame) for
     every sample of ``ds``, in order, through ``engine`` at its batch.
-    A sample's ``obj_pos`` (the stacked path's) joins its meta row.
+    A sample's ``obj_pos`` (the stacked path's) and its arrays named in
+    ``keep`` join its meta row.
 
     The first batch runs once more as a warm-up (first-call CUDA, cuDNN
     and cuBLAS set-up stay out of the times).  Each batch appends
     {'n', 'wait_ms', 'device_ms'} to ``timing``: the time spent waiting on
-    the loader and the engine's time up to a synchronise."""
+    the loader and the engine's time up to a synchronise, which a
+    ``--profile-dir`` trace shows as a BATCH_SPAN range."""
     import torch
 
     from gdm_tpu_torch.data.loader import DataLoader, pad_batch
@@ -321,17 +345,43 @@ def _run_batches(engine, ds, batch_size, num_workers, timing):
             sync()
             warm = False
         t0 = time.perf_counter()
-        poses = engine.run(raw)
-        sync()
+        with torch.profiler.record_function(BATCH_SPAN):
+            poses = engine.run(raw)
+            sync()
         dev = time.perf_counter() - t0
         timing.append({"n": n_real, "wait_ms": wait * 1e3,
                        "device_ms": dev * 1e3})
         for i in range(n_real):
-            m = meta[i]
+            m = dict(meta[i], **{k: batch[k][i] for k in keep})
             if "obj_pos" in batch:
-                m = dict(m, obj_pos=int(batch["obj_pos"][i]))
+                m["obj_pos"] = int(batch["obj_pos"][i])
             yield (m, int(batch["det"][i]), np.asarray(poses[i], np.float64),
                    dev / batch_size)
+
+
+def _save_viz(viz_dir, obj_name, file_name, rgb_u8, K_crop, pts, pose,
+              gt_rt=None, max_pts=2048, inst=0):
+    """One pose-overlay PNG on the network's input crop (gdm_tpu/cli.py
+    ``_save_viz``): the prediction in green over the GT in blue (when
+    given and non-zero), at most ``max_pts`` model points.  ``inst``
+    numbers the detections of one object in one frame (infer keeps every
+    detection): ``<viz_dir>/<obj_name>_<scene>_<image>[_<inst>].png``."""
+    from gdm_tpu_torch.data.imio import imwrite_png
+    from gdm_tpu_torch.utils.viz import draw_pose
+
+    os.makedirs(viz_dir, exist_ok=True)
+    pts = np.asarray(pts)
+    if len(pts) > max_pts:
+        pts = pts[:: len(pts) // max_pts + 1]
+    img = np.ascontiguousarray(rgb_u8)
+    if gt_rt is not None and np.abs(gt_rt).sum() > 0:
+        img = draw_pose(img, pts, gt_rt[:, :3], gt_rt[:, 3], K_crop,
+                        color=(60, 120, 255))
+    img = draw_pose(img, pts, pose[:, :3], pose[:, 3], K_crop,
+                    color=(0, 255, 80))
+    suffix = "" if inst == 0 else f"_{inst}"
+    imwrite_png(osp.join(viz_dir, f"{obj_name}_{file_name.replace('/', '_')}"
+                                  f"{suffix}.png"), img)
 
 
 def _object_mesh(cfg, cls_id, data_root):
@@ -398,11 +448,18 @@ def evaluate(args):
                                 batch_size, log,
                                 _icp_gate(args, cfg, diameter))
         n_done = 0
+        viz_seen = collections.Counter()     # detections per frame
         for meta, det, pose, dt in _run_batches(
-                engine, ds, batch_size, args.num_workers, timing):
+                engine, ds, batch_size, args.num_workers, timing,
+                keep=VIZ_KEYS if args.save_viz else ()):
             evaluator.add_prediction(obj_name, meta["file_name"],
                                      pose[:, :3], pose[:, 3], time=dt,
                                      det=det)
+            if args.save_viz:
+                viz_seen[meta["file_name"]] += 1
+                _save_viz(args.save_viz, obj_name, meta["file_name"],
+                          meta["rgb_u8"], meta["K_crop"], pts, pose,
+                          meta["RT"], inst=viz_seen[meta["file_name"]] - 1)
             n_done += 1
         log.info("%s: %d frames", obj_name, n_done)
 
@@ -496,17 +553,24 @@ def infer(args):
             log.warning("no detections for %s%s", obj_name,
                         " (after --targets filter)" if targets else "")
             continue
+        mesh_fps = _object_mesh(cfg, cls_id, args.data_root)
         engine = _object_engine(
-            cfg, args, obj_name, _object_mesh(cfg, cls_id, args.data_root),
-            device, batch_size, log, _icp_gate(
-                args, cfg, refd.diameters_mm_by_id[cls_id] / 1000.0))
+            cfg, args, obj_name, mesh_fps, device, batch_size, log,
+            _icp_gate(args, cfg, refd.diameters_mm_by_id[cls_id] / 1000.0))
         if args.stacked:
             parts.append((cls_id, ds, engine))
             continue
         n_done = 0
+        viz_seen = collections.Counter()     # detections per frame
         for meta, _, pose, dt in _run_batches(
-                engine, ds, batch_size, args.num_workers, timing):
+                engine, ds, batch_size, args.num_workers, timing,
+                keep=VIZ_KEYS[:2] if args.save_viz else ()):
             rows.append((meta["file_name"], cls_id, pose, dt))
+            if args.save_viz:
+                viz_seen[meta["file_name"]] += 1
+                _save_viz(args.save_viz, obj_name, meta["file_name"],
+                          meta["rgb_u8"], meta["K_crop"], mesh_fps[:, :3],
+                          pose, inst=viz_seen[meta["file_name"]] - 1)
             n_done += 1
         log.info("%s: %d frames", obj_name, n_done)
     if parts:
@@ -733,6 +797,8 @@ def train(args):
                                sol.bn_momentum_clip)
     lr = None
     result = {"objects": {}, "timing": []}
+    pretrained = args.pretrained_backbone or cfg.model.pretrained_backbone
+    pretrained_sd = None
 
     for cls_id in cls_ids:
         obj_name = refd.id2obj[cls_id]
@@ -764,6 +830,19 @@ def train(args):
                                          args.data_root))
         weights.init_random_(model, torch.Generator().manual_seed(
             args.seed + cls_id))
+        if pretrained:
+            if not needs_pyramid:   # DGCNN has no CNN branch
+                raise SystemExit("--pretrained-backbone needs the "
+                                 "randla_spline (FFB6D) backbone")
+            from gdm_tpu_torch.train.import_torch import (
+                load_pretrained_backbone,
+                read_torchvision_state,
+            )
+
+            if pretrained_sd is None:   # read once for --cls-id all
+                pretrained_sd = read_torchvision_state(pretrained)
+            load_pretrained_backbone(model, pretrained_sd)
+            log.info("CNN backbone initialised from %s", pretrained)
         model.to(device)
         state = create_train_state(model, lr, sol.weight_decay,
                                    sol.skip_nonfinite)
@@ -852,38 +931,131 @@ def train(args):
     return result
 
 
+def export_serving(args):
+    """Write one object's serving artifact (serve.export_serving_artifact)
+    at the engine batch ``--batch-size`` (default the eval batch), from
+    ``--torch-checkpoint`` or ``<ckpt_root>/checkpoints/<object>``'s
+    newest checkpoint; untrained weights are refused
+    (gdm_tpu/cli.py:1497-1501).  Returns the artifact's meta."""
+    from gdm_tpu_torch import refdata, weights
+    from gdm_tpu_torch.serve import export_serving_artifact
+    from gdm_tpu_torch.train.checkpoint import checkpoint_file
+
+    log = get_logger("export-serving")
+    _refuse_unported(args, log)
+    _device(args)
+    cfg = model_config(args.dataset, args.opt)
+    _log_exact_knn(args, cfg, log)
+    refd = refdata.get(args.dataset)
+    cls_id = args.cls_id
+    obj_name = refd.id2obj[cls_id]
+    diameter = refd.diameters_mm_by_id[cls_id] / 1000.0
+    batch = args.batch_size or cfg.solver.val_batch_size
+    if args.torch_checkpoint:
+        state = weights.read_reference_checkpoint(
+            osp.join(args.torch_checkpoint, obj_name))
+    else:
+        ckpt_dir = osp.join(args.ckpt_root, "checkpoints", obj_name)
+        path = checkpoint_file(ckpt_dir)
+        if path is None:
+            raise SystemExit(f"no checkpoint for {obj_name} in {ckpt_dir} "
+                             "— refusing to export untrained weights")
+        state = weights.read_reference_checkpoint(path)
+    out_dir = args.out or osp.join("serving", args.dataset, obj_name)
+    info = export_serving_artifact(
+        out_dir, cfg, _fps_mm(_object_mesh(cfg, cls_id, args.data_root)),
+        state, batch=batch,
+        knn_chunk=knn_chunk_for(args.knn_chunk, batch, cfg, log),
+        refine=args.refine, icp_reject=_icp_gate(args, cfg, diameter),
+        dataset=args.dataset, opts=args.opt,
+        meta={"obj_name": obj_name, "cls_id": cls_id,
+              "diameter_m": diameter})
+    log.info("exported %s -> %s (batch %d)", obj_name, out_dir, batch)
+    return info
+
+
+def start_server(args):
+    """The PoseService of ``serve``'s artifacts (every engine built, and
+    warmed up unless --no-warmup) and its bound HTTP server, not yet
+    serving: the caller runs ``serve_forever()`` and ``shutdown()``s it."""
+    from gdm_tpu_torch.server import PoseService, load_artifact_tree, \
+        make_server
+
+    log = get_logger("serve")
+    device = _device(args)
+    try:
+        engines = load_artifact_tree(args.artifact, device)
+    except (ValueError, OSError) as e:  # bad artifact, missing/non-dir path
+        raise SystemExit(str(e))
+    for name, eng in sorted(engines.items()):
+        log.info("loaded %s (batch %d, %s)", name,
+                 next(iter(eng.meta["raw_spec"].values()))[0][0], device)
+    service = PoseService(engines)
+    if not args.no_warmup:
+        log.info("warming up %d object(s)...", len(engines))
+        service.warmup()
+    server = make_server(service, args.host, args.port)
+    host, port = server.server_address[:2]
+    log.info("serving %d object(s) on http://%s:%d  (POST /pose, GET "
+             "/healthz, GET /meta)", len(engines), host, port)
+    return service, server
+
+
+def serve_cmd(args):
+    """HTTP pose service over exported artifacts until SIGINT."""
+    _, server = start_server(args)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        get_logger("serve").info("shutting down")
+    finally:
+        server.server_close()
+
+
 def build_parser():
     p = argparse.ArgumentParser("gdm_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
 
-    def common(sp):
+    def base(sp):
         sp.add_argument("--dataset", required=True,
                         choices=["lmo", "lmfull", "lm_full", "ycbv"])
         sp.add_argument("--data-root", required=True)
-        sp.add_argument("--cls-id", type=int, default=None,
-                        help="single object (default: all in config)")
         sp.add_argument("--opt", action="append", default=[],
                         metavar="SECTION.FIELD=VALUE",
                         help="config override, repeatable (e.g. "
                              "solver.val_batch_size=64)")
+        sp.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler chrome trace of the "
+                             "command here")
+
+    def common(sp):
+        base(sp)
+        sp.add_argument("--cls-id", type=int, default=None,
+                        help="single object (default: all in config)")
         sp.add_argument("--targets", default=None,
                         help="BOP test-targets JSON: only the listed "
                              "(scene, im, obj) instances")
 
-    def run(sp):
-        common(sp)
+    def device(sp, what="torch device"):
+        sp.add_argument("--device", default="cuda",
+                        help=f"{what} (default cuda; cpu on request)")
+
+    def not_ported(sp, shards=True):
+        sp.add_argument("--devices", type=int, default=None,
+                        help="not ported beyond 1")
+        sp.add_argument("--multihost", action="store_true",
+                        help="not ported")
+        if shards:
+            sp.add_argument("--model-shards", type=int, default=1,
+                            help="not ported beyond 1")
+
+    def engine(sp):
         sp.add_argument("--batch-size", type=int, default=None,
                         help="engine batch (default solver.val_batch_size)")
-        sp.add_argument("--num-workers", type=int, default=8,
-                        help="loader decode threads")
         sp.add_argument("--knn-chunk", type=int, default=1024,
                         help="KNN queries per distance block (lowered at "
                              "large batches to bound device memory)")
-        sp.add_argument("--torch-checkpoint", required=True,
-                        help="directory of <object name>/geomatch.pth.tar "
-                             "reference checkpoints")
-        sp.add_argument("--device", default="cuda",
-                        help="torch device (default cuda; cpu on request)")
+        device(sp)
         sp.add_argument("--exact-knn", action="store_true",
                         help="exact KNN pyramid and DGCNN graphs (the "
                              "port's only mode)")
@@ -892,15 +1064,22 @@ def build_parser():
         sp.add_argument("--icp-reject", type=float, default=None,
                         help="ICP correspondence gate in metres (default "
                              "data.nn_dist_th x object diameter)")
+
+    def run(sp):
+        common(sp)
+        engine(sp)
+        not_ported(sp)
+        sp.add_argument("--num-workers", type=int, default=8,
+                        help="loader decode threads")
+        sp.add_argument("--torch-checkpoint", required=True,
+                        help="directory of <object name>/geomatch.pth.tar "
+                             "reference checkpoints")
         sp.add_argument("--save-viz", default=None, metavar="DIR",
-                        help="not ported")
-        sp.add_argument("--model-shards", type=int, default=1,
-                        help="not ported")
+                        help="write a pose-overlay PNG per frame onto its "
+                             "input crop (prediction green; eval: GT blue)")
 
     t = sub.add_parser("train", help="train per-object models")
-    t.add_argument("--dataset", required=True,
-                   choices=["lmo", "lmfull", "lm_full", "ycbv"])
-    t.add_argument("--data-root", required=True)
+    base(t)
     t.add_argument("--cls-id", required=True,
                    help="object id, or 'all' for every object of the "
                         "config in turn")
@@ -925,19 +1104,12 @@ def build_parser():
                    help="decode worker kind: threads, or spawned processes")
     t.add_argument("--knn-chunk", type=int, default=1024,
                    help="KNN queries per distance block")
-    t.add_argument("--opt", action="append", default=[],
-                   metavar="SECTION.FIELD=VALUE",
-                   help="config override, repeatable (e.g. "
-                        "solver.checkpoint_every_epochs=1)")
-    t.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; cpu on request)")
+    device(t)
     t.add_argument("--pretrained-backbone", default=None,
-                   help="not ported")
-    t.add_argument("--multihost", action="store_true", help="not ported")
-    t.add_argument("--devices", type=int, default=None,
-                   help="not ported beyond 1")
-    t.add_argument("--model-shards", type=int, default=1,
-                   help="not ported")
+                   help="torchvision resnet .pth/.npz: ImageNet init of "
+                        "the CNN branch (overrides "
+                        "model.pretrained_backbone)")
+    not_ported(t)
 
     e = sub.add_parser("eval", help="evaluate on the test set")
     run(e)
@@ -971,21 +1143,68 @@ def build_parser():
     s.add_argument("--vsd", action="store_true",
                    help="BOP VSD errors, recall and AR (models_eval PLY "
                         "meshes)")
-    s.add_argument("--device", default="cuda",
-                   help="torch device of the VSD renders (default cuda; "
-                        "cpu on request)")
+    device(s, "torch device of the VSD renders")
+
+    x = sub.add_parser("export-serving",
+                       help="write one object's serving artifact (meta, "
+                            "weights, mesh) for cli serve")
+    base(x)
+    x.add_argument("--cls-id", type=int, required=True)
+    engine(x)
+    not_ported(x, shards=False)
+    x.add_argument("--ckpt-root", default="train_log",
+                   help="read <ckpt_root>/checkpoints/<object>/latest "
+                        "without --torch-checkpoint")
+    x.add_argument("--torch-checkpoint", default=None,
+                   help="directory of <object name>/geomatch.pth.tar "
+                        "reference checkpoints")
+    x.add_argument("--out", default=None,
+                   help="artifact directory (default "
+                        "serving/<dataset>/<object name>)")
+    x.add_argument("--platforms", default="cuda,cpu",
+                   help="recorded nothing: the artifact holds weights and "
+                        "serves on any --device of serve")
+
+    v = sub.add_parser("serve",
+                       help="HTTP pose service over exported artifacts: "
+                            "POST /pose (npz in, npz poses out) until "
+                            "SIGINT")
+    v.add_argument("--artifact", action="append", required=True,
+                   metavar="DIR",
+                   help="artifact directory (from export-serving), or a "
+                        "root whose subdirectories are artifacts; "
+                        "repeatable")
+    v.add_argument("--host", default="127.0.0.1")
+    v.add_argument("--port", type=int, default=8360)
+    v.add_argument("--no-warmup", action="store_true",
+                   help="skip the synthetic warm-up batch per object (the "
+                        "first request then pays the device's set-up)")
+    device(v)
+    v.add_argument("--profile-dir", default=None, help=argparse.SUPPRESS)
     return p
 
 
+def _traces_cuda(args) -> bool:
+    """Whether the command runs on the card: its --device is CUDA and,
+    for score, it renders VSD."""
+    import torch
+
+    dev = getattr(args, "device", None)
+    if dev is None or (args.command == "score" and not args.vsd):
+        return False
+    return torch.device(dev).type == "cuda"
+
+
 def main(argv=None):
+    from gdm_tpu_torch.utils.logging import profiler_trace
+
     args = build_parser().parse_args(argv)
-    if args.command == "train":
-        return train(args)
-    if args.command == "score":
-        return score(args)
-    if args.command == "infer":
-        return infer(args)
-    return evaluate(args)
+    commands = {"train": train, "eval": evaluate, "infer": infer,
+                "score": score, "export-serving": export_serving,
+                "serve": serve_cmd}
+    with profiler_trace(args.profile_dir, cuda=bool(args.profile_dir)
+                        and _traces_cuda(args)):
+        return commands[args.command](args)
 
 
 if __name__ == "__main__":

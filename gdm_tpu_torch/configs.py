@@ -5,9 +5,8 @@ training, the BOP loader and the CLI read, in the same ``config.data.*``
 / ``config.model.*`` / ``config.solver.*`` layout and with the same
 preset values (reference config/lmo_cfg.py, lmfull_cfg.py,
 ycbv_cfg.py).  ``model.backbone`` picks the flagship ``randla_spline``
-or ``dgcnn`` (config 5); any other name raises.  bf16 compute and the
-pretrained-backbone path are not ported (ROADMAP queue 1 items 11f,
-11d).
+or ``dgcnn`` (config 5); any other name raises.  bf16 compute is not
+ported (ROADMAP queue 1 item 11f).
 """
 
 from __future__ import annotations
@@ -54,6 +53,8 @@ class ModelConfig:
     spline_kernel: int = 5
     dgcnn_exact_knn: bool = False   # the JAX package's switch to exact
     # edge-conv graphs; the port's graphs are always exact
+    pretrained_backbone: str = ""   # torchvision resnet .pth/.npz path:
+    # ImageNet init of the CNN branch (cli train --pretrained-backbone)
 
 
 BACKBONES = ("randla_spline", "dgcnn")
@@ -176,3 +177,15 @@ def get_config(name: str, opts: Sequence[str] = ()) -> Config:
         cfg = dataclasses.replace(
             cfg, **{section: dataclasses.replace(sub, **{field: val})})
     return cfg
+
+
+def config_from_dict(d: dict) -> Config:
+    """The Config that ``dataclasses.asdict`` gave ``d`` (a serving
+    artifact's meta.json): its lists back to tuples."""
+    def part(cls, fields):
+        return cls(**{k: tuple(v) if isinstance(v, list) else v
+                      for k, v in fields.items()})
+
+    return Config(data=part(DataConfig, d["data"]),
+                  model=part(ModelConfig, d["model"]),
+                  solver=part(SolverConfig, d["solver"]))

@@ -1,4 +1,4 @@
-"""Single-object pose engine for the HTTP service.
+"""Single-object pose engine for the HTTP service, and its artifact.
 
 Counterpart of gdm_tpu/serve.py's ServingArtifact: the same ``meta``
 (``raw_spec`` = {key: [shape, dtype]} of the loader's ship format),
@@ -13,11 +13,34 @@ features, encoded once at construction.
 The configuration computes in f32.  cuDNN allows TF32 convolutions by
 default, so the engine turns TF32 off for matmuls and convolutions around
 its own device work (:func:`full_f32`) whatever the caller has set.
+
+A serving artifact (``cli export-serving``) is a directory that
+:func:`load_artifact` turns back into a PoseEngine with no dataset tree:
+
+  - ``meta.json``: every key of the JAX package's artifact meta but its
+    ``platforms`` and ``jax_version`` (``format_version``, ``raw_spec``,
+    ``output``, ``fill_depth``, ``needs_pyramid``, ``knn_chunk``,
+    ``exact_knn``, ``refine``, ``icp_reject_m``, ``dataset``,
+    ``obj_name``, ``cls_id``, ``diameter_m``), and ``format``
+    ("gdm_tpu_torch"), ``opts`` (the ``--opt`` overrides of the dataset
+    preset), ``config`` (the configuration they gave, from which a
+    DGCNN or YCB-V artifact rebuilds its own model wherever it is
+    loaded) and ``torch_version``;
+  - ``weights.npz``: the reference-named state dict;
+  - ``mesh_fps.npy``: the object's [m, 9] fps array, xyz in millimetres.
+
+Where a JAX artifact holds traced StableHLO programs (``finalize.bin``,
+``infer.bin``), the port's holds weights and rebuilds the model: it cannot
+replay a JAX artifact, and refuses one by name.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import json
+import os
+import os.path as osp
 
 import numpy as np
 import torch
@@ -26,6 +49,11 @@ from gdm_tpu_torch import weights
 from gdm_tpu_torch.data.pipeline import finalize_batch, to_device
 from gdm_tpu_torch.eval.infer import run_inference
 from gdm_tpu_torch.models.build import build_model
+
+META, WEIGHTS, MESH = "meta.json", "weights.npz", "mesh_fps.npy"
+# the JAX package's artifact format (gdm_tpu/serve.py _FORMAT_VERSION):
+# depth ships as uint16 counts with a per-sample scale
+FORMAT_VERSION = 2
 
 
 @contextlib.contextmanager
@@ -140,3 +168,87 @@ class PoseEngine:
     def run(self, raw: dict) -> np.ndarray:
         """finalize + infer; numpy poses (PoseService calls np.asarray)."""
         return self.infer(self.finalize(raw)).cpu().numpy()
+
+
+def export_serving_artifact(out_dir: str, config, mesh_fps_mm: np.ndarray,
+                            state_dict: dict, *, batch: int, knn_chunk: int,
+                            refine: str | None, icp_reject: float,
+                            dataset: str, opts, meta: dict) -> dict:
+    """Write a serving artifact of one object (see the module docstring).
+
+    ``state_dict`` is loaded strictly into the configured model first, so
+    weights that do not fit ``config`` are refused before anything is
+    written; the artifact holds them as that model's reference-named
+    state dict.  ``meta`` (obj_name, cls_id, diameter_m) joins meta.json.
+    Returns the meta written."""
+    model, _, _, needs_pyramid = build_model(config, mesh_fps_mm, "cpu")
+    weights.load_reference_state_dict(model, state_dict)
+    fill_depth = bool(config.data.fill_depth)
+    info = {
+        "format": "gdm_tpu_torch",
+        "format_version": FORMAT_VERSION,
+        "torch_version": torch.__version__,
+        "raw_spec": raw_input_spec(batch, config.data.input_size,
+                                   config.data.num_sample_points,
+                                   fill_depth),
+        "output": "poses [batch, 3, 4] (world->cam R|t, metres)",
+        "fill_depth": fill_depth,
+        "needs_pyramid": bool(needs_pyramid),
+        "knn_chunk": int(knn_chunk),
+        "exact_knn": True,
+        "refine": refine,
+        "icp_reject_m": float(icp_reject),
+        "dataset": dataset,
+        "opts": list(opts),
+        "config": dataclasses.asdict(config),
+        **meta,
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez(osp.join(out_dir, WEIGHTS), **{
+        k: v.numpy() for k, v in weights.reference_state_dict(model).items()})
+    np.save(osp.join(out_dir, MESH), np.asarray(mesh_fps_mm))
+    with open(osp.join(out_dir, META), "w") as f:
+        json.dump(info, f, indent=1, sort_keys=True)
+    return info
+
+
+def read_artifact_meta(path: str) -> dict:
+    """meta.json of a port artifact directory.  A JAX artifact (traced
+    programs, no weights) and a newer format are refused."""
+    with open(osp.join(path, META)) as f:
+        meta = json.load(f)
+    if not osp.exists(osp.join(path, WEIGHTS)):
+        jax_files = [f for f in ("finalize.bin", "infer.bin")
+                     if osp.exists(osp.join(path, f))]
+        if jax_files:
+            raise ValueError(
+                f"{path} is a JAX artifact ({', '.join(jax_files)}: traced "
+                "StableHLO programs), which the port cannot replay; export "
+                "it with python -m gdm_tpu_torch.cli export-serving")
+        raise ValueError(f"{path}: no {WEIGHTS}")
+    if meta.get("format_version", 0) > FORMAT_VERSION:
+        raise ValueError(
+            f"artifact format {meta['format_version']} is newer than this "
+            f"loader ({FORMAT_VERSION})")
+    return meta
+
+
+def load_artifact(path: str, device) -> PoseEngine:
+    """The PoseEngine of an artifact directory on ``device``, its meta
+    the artifact's (plus ``device``)."""
+    from gdm_tpu_torch.configs import config_from_dict
+
+    meta = read_artifact_meta(path)
+    config = config_from_dict(meta["config"])
+    with np.load(osp.join(path, WEIGHTS)) as z:
+        state = {k: z[k] for k in z.files}
+    batch = next(iter(meta["raw_spec"].values()))[0][0]
+    engine = PoseEngine(config, np.load(osp.join(path, MESH)), state, device,
+                        batch=batch, knn_chunk=meta["knn_chunk"],
+                        refine=meta["refine"], icp_reject=meta["icp_reject_m"])
+    if engine.meta["raw_spec"] != meta["raw_spec"]:
+        raise ValueError(f"{path}: its config serves "
+                         f"{engine.meta['raw_spec']}, its raw_spec says "
+                         f"{meta['raw_spec']}")
+    engine.meta = dict(meta, device=str(engine.device))
+    return engine

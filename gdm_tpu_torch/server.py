@@ -13,7 +13,8 @@ talks to the other unchanged (npz over HTTP):
   GET  /meta[?obj=NAME]   the engine's meta.
 
 Objects are routed by the ``obj`` query parameter; with a single loaded
-engine it may be omitted.  Device calls are serialised under one lock;
+engine it may be omitted.  ``cli serve`` loads the engines from the
+artifacts of ``cli export-serving`` (:func:`load_artifact_tree`).  Device calls are serialised under one lock;
 concurrent HTTP readers overlap only their host-side decode/encode.
 Python-stdlib only (http.server + numpy).
 """
@@ -125,6 +126,42 @@ class PoseService:
         not pay the device's first-call set-up."""
         for name, eng in sorted(self.engines.items()):
             self.run(name, synthetic_raw(eng.meta["raw_spec"]))
+
+
+def load_artifact_tree(paths, device) -> dict:
+    """obj_name -> PoseEngine on ``device`` for each path in ``paths``
+    (gdm_tpu/server.py's function of the same name).
+
+    A path is an artifact directory (it holds meta.json) or a root whose
+    immediate subdirectories are artifacts (the ``serving/<dataset>/``
+    layout that ``cli export-serving`` writes).  Route names come from
+    each artifact's ``obj_name``, else its directory's name; a duplicate
+    is an error.  Every artifact is read and checked before any engine is
+    built."""
+    import os
+    import os.path as osp
+
+    from gdm_tpu_torch.serve import load_artifact, read_artifact_meta
+
+    found = {}
+    for path in paths:
+        if osp.exists(osp.join(path, "meta.json")):
+            dirs = [path]
+        else:
+            dirs = sorted(
+                osp.join(path, d) for d in os.listdir(path)
+                if osp.exists(osp.join(path, d, "meta.json")))
+            if not dirs:
+                raise ValueError(f"{path}: no artifact (meta.json) found"
+                                 " in it or its subdirectories")
+        for d in dirs:
+            meta = read_artifact_meta(d)
+            name = meta.get("obj_name") or osp.basename(osp.normpath(d))
+            if name in found:
+                raise ValueError(f"duplicate object name {name!r} "
+                                 f"({d} vs {found[name]})")
+            found[name] = d
+    return {name: load_artifact(d, device) for name, d in found.items()}
 
 
 def synthetic_raw(spec: dict) -> dict:

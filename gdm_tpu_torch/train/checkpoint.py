@@ -50,20 +50,27 @@ def save_checkpoint(state: TrainState, ckpt_dir: str, epoch: int) -> str:
     return path
 
 
+def checkpoint_file(ckpt_dir: str, name: str | None = None) -> str | None:
+    """``<ckpt_dir>/<name>/geomatch.pth.tar`` (default: the ``latest``
+    epoch's), or None when there is none."""
+    ckpt_dir = osp.abspath(ckpt_dir)
+    if name is None:
+        latest = osp.join(ckpt_dir, "latest")
+        if not osp.exists(latest):
+            return None
+        with open(latest) as f:
+            name = f.read().strip()
+    path = osp.join(ckpt_dir, name, FILE)
+    return path if osp.exists(path) else None
+
+
 def load_checkpoint(state: TrainState, ckpt_dir: str,
                     name: str | None = None):
     """Restore ``state`` in place from ``<ckpt_dir>/<name>`` (default: the
     ``latest`` one); returns (state, epoch), or (state, None) when there
     is no checkpoint (the reference's miss path, train_lm.py:118-146)."""
-    ckpt_dir = osp.abspath(ckpt_dir)
-    if name is None:
-        latest = osp.join(ckpt_dir, "latest")
-        if not osp.exists(latest):
-            return state, None
-        with open(latest) as f:
-            name = f.read().strip()
-    path = osp.join(ckpt_dir, name, FILE)
-    if not osp.exists(path):
+    path = checkpoint_file(ckpt_dir, name)
+    if path is None:
         return state, None
     blob = torch.load(path, map_location="cpu", weights_only=True)
     weights.load_train_state(state.model, state.optimizer,

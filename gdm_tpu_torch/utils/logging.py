@@ -1,11 +1,53 @@
-"""Metrics log of the port (counterpart of gdm_tpu/utils/logging.py's
-JsonlLogger, with the same record format)."""
+"""Metrics log and profiler trace of the port (counterparts of
+gdm_tpu/utils/logging.py's JsonlLogger, with the same record format, and
+of its profiler_trace)."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import os.path as osp
+import re
 import time
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str | None, cuda: bool = False):
+    """A ``torch.profiler`` trace of the block, written as one chrome
+    trace (``trace_<pid>_<time>.json``) into ``log_dir``; nothing when
+    ``log_dir`` is None.
+
+    With ``cuda`` the trace records the CUDA activity (kernels, copies)
+    beside the host's, and a trace that holds no kernel raises: without
+    CUPTI the profiler would quietly trace the host alone."""
+    if log_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError("a CUDA trace asked for, but CUDA is not "
+                           "available")
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(log_dir, exist_ok=True)
+    path = osp.join(log_dir, f"trace_{os.getpid()}_"
+                             f"{time.strftime('%Y%m%d_%H%M%S')}.json")
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        if cuda:
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(path)
+    if cuda:
+        with open(path) as f:
+            if not re.search(r'"cat"\s*:\s*"kernel"', f.read()):
+                raise RuntimeError(f"{path}: the CUDA trace holds no "
+                                   "kernel event (is CUPTI missing?)")
 
 
 class JsonlLogger:

@@ -337,7 +337,7 @@ def test_vsd_matches_jax_cli(vsd_runs, runs, mode):
 
 
 @pytest.mark.parametrize("extra,err", [
-    (["--save-viz", "viz"], NotImplementedError),
+    (["--multihost"], NotImplementedError),
     (["--model-shards", "2"], NotImplementedError),
     (["--device", "cuda"], RuntimeError)])
 def test_unported_options_raise(runs, extra, err):

@@ -202,7 +202,7 @@ def test_trained_checkpoint_outputs_match_jax(trained_outputs, key):
     assert H.rel_err(got, ref) <= 1e-4, H.rel_err(got, ref)
 
 
-@pytest.mark.parametrize("flag", [["--pretrained-backbone", "x.pth"],
+@pytest.mark.parametrize("flag", [["--devices", "8"],
                                   ["--multihost"], ["--devices", "2"],
                                   ["--model-shards", "2"]])
 def test_unported_train_options_raise(runs, flag):
