@@ -52,7 +52,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    peak device memory.  Profile: ``cli eval --profile-dir`` of the same
    tree; from the chrome trace's kernel (and copy) events, the share of
    each timed batch's window (its ``cli.BATCH_SPAN`` range) in which the
-   device was busy.
+   device was busy, and kernel time by name; each traced batch's fit is
+   held against the plain argmax after the trace.
 5. Refine: ``cli eval --refine ransac|icp|meanshift`` at b=128 on the
    eval phase's tree and checkpoint: one kernel launch per batch plus the
    warm-up, every batch's correspondences held against the plain argmax,
@@ -157,9 +158,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
    plain checks' time), frames/s, step times and peak memory of each
    run.
 
+11. bf16 (``--opt model.compute_dtype=bfloat16``) on the eval and train
+   trees: ``cli eval`` at b=128 (per-batch device ms and peak memory
+   beside the eval phase's f32 ones), ``cli eval --profile-dir`` (the
+   convolution kernels of a traced batch beside the f32 profile's; none
+   may be an f32 one), one full-width batch of 2 through GeoMatch in bf16
+   on the card against the CPU (seg and rgbd within 2x the CPU's own
+   bf16-vs-f32 gap and 2e-2; the f32 mesh branch within 1e-4), ``cli
+   train`` at b=24 for one epoch with ``model.gather_bwd_dtype=bfloat16``
+   too (finite losses), 15 steps on a fixed batch (the loss falls; the
+   step split beside the train phase's f32 one; 3 traced steps: kernel
+   time by name and the gather backward's index_add_ kernels), and DGCNN
+   ``cli eval`` at b=128 beside the dgcnn phase's f32 batches.  Every
+   batch fitted is held against the plain argmax (the traced runs' after
+   the trace).
+
 Output: per-request latency lines, then one JSON line with the kernels
 (``launches_serve`` the CLI-served batches, ``launches_profile`` the
-traced eval's), the card's name and power limit, and the last line
+traced eval's, ``launches_bf16`` the bf16 phase's), the card's name and
+power limit, and the last line
 {"ok": true, "device": {...}}.  Nothing of JAX or of the JAX package is imported: the
 script blocks ``jax``, ``flax`` and ``gdm_tpu`` before any import, so
 only ``gdm_tpu_torch`` runs.
@@ -461,10 +478,13 @@ class FitChecks:
     (after a synchronise) for callers that subtract them from the batch's
     device time."""
 
-    def __init__(self, sim, tag):
+    def __init__(self, sim, tag, defer=False):
         self.sim, self.tag = sim, tag
         self.n, self.seconds = 0, 0.0
         self.check_ms = []          # per batch, the warm-up's first
+        # defer: keep each batch's fit and check them all on exit, so that
+        # a traced run's batches hold no plain-check kernels
+        self.defer, self.kept = defer, []
 
     def __enter__(self):
         from gdm_tpu_torch.eval import pose_fit
@@ -474,6 +494,9 @@ class FitChecks:
 
         def infer(engine, fin):
             poses = orig(engine, fin)
+            if self.defer:
+                self.kept.append(engine.last_fit)
+                return poses
             if poses.is_cuda:           # the fit's own time stays out
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -488,9 +511,15 @@ class FitChecks:
         return self
 
     def __exit__(self, *exc):
+        from gdm_tpu_torch.eval import pose_fit
         from gdm_tpu_torch.serve import PoseEngine
 
         PoseEngine.infer = self.orig
+        for fit in self.kept:
+            check_fit_indices(fit, self.sim, pose_fit,
+                              f"{self.tag} batch {self.n}")
+            self.n += 1
+        self.kept = []
 
 
 def write_eval_tree(workdir):
@@ -801,7 +830,7 @@ def eval_phase(sim, workdir):
         fail("score of the eval CSV does not reproduce eval's recalls/AUC")
     log(f"  score of the eval CSV reproduces eval's recalls exactly and its "
         f"AUC {res['auc']['ape']:.6f} to {dauc:.3g}")
-    return launches, timing
+    return launches, timing, peak
 
 
 def busy_share(events, lo, hi):
@@ -820,27 +849,31 @@ def busy_share(events, lo, hi):
                      and lo <= e["ts"] < hi)
 
 
-def profile_run(sim, workdir, smi):
+def profile_run(sim, workdir, smi, extra=(), tag="profile"):
     """``cli eval --profile-dir`` on the eval tree (one object, two b=128
-    batches and the warm-up): the device-busy share of each timed batch's
-    window (its BATCH_SPAN range on the host, which ends after a
-    synchronise), from the trace's kernel events.  Returns the kernel
-    launches and the shares."""
+    batches and the warm-up), with the ``extra`` arguments: the
+    device-busy share of each timed batch's window (its BATCH_SPAN range
+    on the host, which ends after a synchronise), from the trace's kernel
+    events; each batch's fit held against the plain argmax after the run.
+    Returns the kernel launches, the shares and the kernel microseconds
+    by name over the timed batches."""
     from gdm_tpu_torch import cli
 
     root, ckpt = osp.join(workdir, "lmo"), osp.join(workdir, "ckpt")
-    prof = osp.join(workdir, "profile")
+    prof = osp.join(workdir, tag)
     sim.cosine_argmax.launches = 0
     t0 = time.perf_counter()
-    res = cli.main(["eval", "--dataset", "lmo", "--data-root", root,
-                    "--torch-checkpoint", ckpt, "--cls-id", "1",
-                    "--exact-knn", "--output-dir",
-                    osp.join(workdir, "out_profile"), "--profile-dir", prof])
+    with FitChecks(sim, f"traced eval ({tag})", defer=True) as fc:
+        res = cli.main(["eval", "--dataset", "lmo", "--data-root", root,
+                        "--torch-checkpoint", ckpt, "--cls-id", "1",
+                        "--exact-knn", "--output-dir",
+                        osp.join(workdir, f"out_{tag}"), "--profile-dir",
+                        prof, *extra])
     wall = time.perf_counter() - t0
     launches = sim.cosine_argmax.launches
-    if launches != len(res["timing"]) + 1:
+    if launches != len(res["timing"]) + 1 or fc.n != launches:
         fail(f"profiled eval launched the kernel {launches} times for "
-             f"{len(res['timing'])} batches + the warm-up")
+             f"{len(res['timing'])} batches + the warm-up ({fc.n} held)")
     (trace,) = os.listdir(prof)
     path = osp.join(prof, trace)
     t0 = time.perf_counter()
@@ -872,7 +905,7 @@ def profile_run(sim, workdir, smi):
         log(f"    kernel time over the {len(spans)} batches: "
             f"{us / 1e3 / len(spans):.2f} ms per batch "
             f"({us / total:.1%}) {name[:100]}")
-    return launches, shares
+    return launches, shares, {k: v / len(spans) for k, v in by_name.items()}
 
 
 def refine_eval_runs(sim, workdir, base_timing):
@@ -1836,11 +1869,16 @@ def loader_stages(cfg, root, n=24):
 
 
 def train_model(cfg):
+    """Seeded random training GeoMatch at ``cfg``'s widths and dtypes."""
     from gdm_tpu_torch import weights
+    from gdm_tpu_torch.models.build import torch_dtype
     from gdm_tpu_torch.models.geomatch import GeoMatch
 
     model = GeoMatch(cfg.model.feat_dim, tuple(cfg.model.randla_d_out),
-                     spline_kernel=cfg.model.spline_kernel, awl=True)
+                     spline_kernel=cfg.model.spline_kernel, awl=True,
+                     compute_dtype=torch_dtype(cfg.model.compute_dtype),
+                     gather_bwd_dtype=torch_dtype(
+                         cfg.model.gather_bwd_dtype))
     weights.init_random_(model, torch.Generator().manual_seed(SEED))
     return model
 
@@ -1983,10 +2021,12 @@ def rel(a, ref, floor=1e-30):
     return float(np.abs(a - ref).max() / max(np.abs(ref).max(), floor))
 
 
-def fixed_batch_steps(cfg, root, n_steps=30):
+def fixed_batch_steps(cfg, root, n_steps=30, trace=False):
     """n_steps train steps on one fixed batch of TRAIN_BATCH at full
     width: the loss must fall (last 5 below the first 5 on average); the
-    step split and device-only samples/s from synchronised timings."""
+    step split and device-only samples/s from synchronised timings.  With
+    ``trace``, 3 more steps under torch.profiler: kernel ms per step by
+    name, and the gather backward's index_add_ kernels (indexFunc*)."""
     from gdm_tpu_torch.data.dataset import PoseDataset
     from gdm_tpu_torch.data.loader import collate
     from gdm_tpu_torch.train import schedules
@@ -2016,8 +2056,8 @@ def fixed_batch_steps(cfg, root, n_steps=30):
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     log(f"  fixed batch of {TRAIN_BATCH}, {n_steps} steps: mean loss of the "
         f"first 5 {first:.4f}, of the last 5 {last:.4f}")
-    log("  step split (mean of steps 6-30, synchronised): " + ", ".join(
-        f"{k} {v:.2f} ms" for k, v in split.items())
+    log(f"  step split (mean of steps 6-{n_steps}, synchronised): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
         + f"; total {total:.2f} ms = {TRAIN_BATCH / total * 1e3:.2f} "
         f"samples/s device-only; peak device memory {peak:.2f} GiB")
     if not all(np.isfinite(losses)):
@@ -2025,8 +2065,40 @@ def fixed_batch_steps(cfg, root, n_steps=30):
     if not last < first:
         fail(f"overfit check: last-5 mean loss {last} not below first-5 "
              f"mean {first}")
+    if trace:
+        kernel_ms = traced_steps(lambda: step(state, batch, mesh, SEED), 3)
+        k_total = sum(kernel_ms.values())
+        index_add = sum(v for k, v in kernel_ms.items() if "indexFunc" in k)
+        log(f"  traced steps: {k_total:.2f} ms of kernels per step; "
+            f"index_add_ (indexFunc*, the gather backward's sums) "
+            f"{index_add:.2f} ms ({index_add / k_total:.1%})")
+        for name, ms in sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"    {ms:.2f} ms per step ({ms / k_total:.1%}) {name[:100]}")
     return {"split_ms": split, "device_sps": TRAIN_BATCH / total * 1e3,
             "first5": first, "last5": last, "peak_gib": peak}
+
+
+def traced_steps(run, n):
+    """Kernel milliseconds per call of ``run`` by kernel name, from
+    torch.profiler over n calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / n
+    if not out:
+        fail("torch.profiler recorded no device time in the traced steps")
+    return out
 
 
 def step_loop_rates(steps, cold=2, prefetch=2):
@@ -2321,7 +2393,7 @@ def dgcnn_weights(cfg, seed=SEED, awl=False):
     return model
 
 
-def dgcnn_cli_run(sim, tag, args):
+def checked_cli_run(sim, tag, args):
     """One ``cli`` run with every batch it fits held against the plain
     argmax (FitChecks); eval and infer launch the kernel once per batch
     plus the warm-up.  Returns (result, launches, peak GiB, check ms)."""
@@ -2580,7 +2652,7 @@ def dgcnn_phase(sim, eval_dir, train_dir):
     common = ["--dataset", "lmo", "--data-root", root, "--torch-checkpoint",
               ckpt, "--cls-id", "1", "--exact-knn", "--num-workers", "8",
               *DGCNN]
-    res, launches, peak, check_ms = dgcnn_cli_run(
+    res, launches, peak, check_ms = checked_cli_run(
         sim, "dgcnn eval", ["eval", *common, "--output-dir", out])
     timing = res["timing"]
     poses = read_csv_poses(osp.join(out, "gt_lmo-test.csv"))
@@ -2594,7 +2666,7 @@ def dgcnn_phase(sim, eval_dir, train_dir):
         f"{launches}, each held against the plain argmax; {len(poses)} "
         f"rows, {n_fit} fitted")
     infer_csv = osp.join(out, "infer.csv")
-    _, n_inf, _, _ = dgcnn_cli_run(sim, "dgcnn infer", [
+    _, n_inf, _, _ = checked_cli_run(sim, "dgcnn infer", [
         "infer", *common, "--output", infer_csv])
     inferred = read_csv_poses(infer_csv)
     if list(inferred) != list(poses):
@@ -2614,7 +2686,7 @@ def dgcnn_phase(sim, eval_dir, train_dir):
     troot = osp.join(train_dir, "lmo_train")
     ckpt_root = osp.join(train_dir, "train_log_dgcnn")
     t0 = time.perf_counter()
-    res, n_val, peak, _ = dgcnn_cli_run(sim, "dgcnn train validation", [
+    res, n_val, peak, _ = checked_cli_run(sim, "dgcnn train validation", [
         "train", "--dataset", "lmo", "--data-root", troot, "--cls-id", "1",
         "--batch-size", str(TRAIN_BATCH), "--epochs", "1", "--eval-every",
         "1", "--ckpt-root", ckpt_root, "--num-workers", "8", *DGCNN])
@@ -2633,7 +2705,7 @@ def dgcnn_phase(sim, eval_dir, train_dir):
                                           for r in steps)
         + f"; peak device memory {peak:.2f} GiB; losses {losses}; "
         f"validation {val}; kernel launches {n_val}")
-    res, n_ev, _, _ = dgcnn_cli_run(sim, "dgcnn eval of the trained "
+    res, n_ev, _, _ = checked_cli_run(sim, "dgcnn eval of the trained "
                                      "checkpoint", [
         "eval", "--dataset", "lmo", "--data-root", troot,
         "--torch-checkpoint", osp.join(ckpt_root, "checkpoints"),
@@ -2645,7 +2717,187 @@ def dgcnn_phase(sim, eval_dir, train_dir):
     dgcnn_forward_costs(cfg, root, ckpt, 128)
     dgcnn_step_split(cfg, troot)
     dgcnn_parity(troot)
-    return launches
+    return launches, [b["device_ms"] - c
+                      for b, c in zip(timing, check_ms[1:])]
+
+
+BF16 = ["--opt", "model.compute_dtype=bfloat16"]
+BF16_GAP_FACTOR = 2.0   # card vs CPU, both bf16: x the CPU's bf16-vs-f32 gap
+BF16_CEILING = 2e-2     # ... and at most this on seg and rgbd
+# conv kernels by name (cuDNN's implicit GEMM, FFT and Winograd forms);
+# f32 ones by their element types
+CONV_TOKENS = ("fprop", "dgrad", "wgrad", "implicit_gemm", "implicit_conv",
+               "winograd", "convolve", "conv2d", "fft",
+               "pointwise_mult_and_sum_complex")
+F32_TOKENS = ("f32f32", "sgemm", "float2", "<float")
+
+
+def conv_kernels(by_name):
+    return {k: v for k, v in by_name.items()
+            if any(t in k.lower() for t in CONV_TOKENS)}
+
+
+def kernel_split(tag, by_name, n=6):
+    total = sum(by_name.values())
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:n]:
+        log(f"    {tag}: {us / 1e3:.2f} ms per batch ({us / total:.1%}) "
+            f"{name[:100]}")
+
+
+def bf16_card_vs_cpu(root, b=2):
+    """One full-width batch of ``b`` eval frames through GeoMatch in bf16
+    on the card and on the CPU (and in f32 on the CPU), seeded random
+    weights, the card's finalized inputs and pyramid for all three: the
+    card within BF16_GAP_FACTOR x the CPU's own bf16-vs-f32 gap of the
+    CPU's bf16 forward, and within BF16_CEILING, on seg and rgbd; the f32
+    mesh branch within DGCNN_TOL."""
+    from gdm_tpu_torch import weights
+    from gdm_tpu_torch.cli import _fps_mm
+    from gdm_tpu_torch.configs import get_config
+    from gdm_tpu_torch.data.dataset import PoseDataset
+    from gdm_tpu_torch.data.loader import collate
+    from gdm_tpu_torch.data.pipeline import build_pyramid, finalize_batch, \
+        to_device
+    from gdm_tpu_torch.data.ply import load_or_build_fps_mesh
+    from gdm_tpu_torch.models.build import build_model
+    from gdm_tpu_torch.serve import full_f32
+
+    cfg = get_config("lmo", BF16[1:])
+    ds = PoseDataset(cfg, 1, "test", data_root=root)
+    batch, _ = collate([ds[i] for i in range(b)])
+    raw = {k: batch[k] for k in ("rgb_u8", "dpt_u16", "dpt_scale", "K_crop",
+                                 "choose", "det")}
+    fps_mm = _fps_mm(load_or_build_fps_mesh(root, 1, cfg.data.model_pt_num))
+    with torch.no_grad(), full_f32():
+        fin = finalize_batch(to_device(raw, "cuda"))
+        inputs = {k: fin[k] for k in ("rgb", "cld_rgb_nrm", "choose")}
+        inputs.update(build_pyramid(fin["cld_rgb_nrm"][..., :3],
+                                    fin["xyz_img"], 1024))
+    sd = None
+    outs = {}
+    for dev, dtype in (("cuda", "bfloat16"), ("cpu", "bfloat16"),
+                       ("cpu", "float32")):
+        t0 = time.perf_counter()
+        c = get_config("lmo", [f"model.compute_dtype={dtype}"])
+        setup = build_model(c, fps_mm, dev)
+        if sd is None:
+            weights.init_random_(setup.model,
+                                 torch.Generator().manual_seed(SEED))
+            sd = setup.model.state_dict()
+        setup.model.load_state_dict(sd)
+        model = setup.model.to(dev).eval()
+        with torch.no_grad(), full_f32():
+            out = model({k: v.to(dev) for k, v in inputs.items()},
+                        setup.mesh)
+        outs[(dev, dtype)] = {k: out[k].cpu().numpy()
+                              for k in ("seg", "rgbd", "mesh")}
+        log(f"  bf16 card vs CPU: the {dev} forward in {dtype} at b={b} "
+            f"(full width) in {time.perf_counter() - t0:.2f} s")
+    card, cpu, cpu32 = (outs[("cuda", "bfloat16")], outs[("cpu", "bfloat16")],
+                        outs[("cpu", "float32")])
+    for key in ("seg", "rgbd"):
+        err, gap = rel(card[key], cpu[key]), rel(cpu[key], cpu32[key])
+        log(f"  bf16 card vs CPU, {key}: max|d|/max|ref| {err:.3g}; the "
+            f"CPU's own bf16-vs-f32 gap {gap:.3g}")
+        if card[key].dtype != np.float32 or not np.isfinite(card[key]).all():
+            fail(f"bf16 card {key}: dtype {card[key].dtype} or non-finite")
+        if not (err <= BF16_GAP_FACTOR * gap and err <= BF16_CEILING):
+            fail(f"bf16 card vs CPU {key}: {err} (gap {gap})")
+    err = rel(card["mesh"], cpu["mesh"])
+    log(f"  bf16 card vs CPU, mesh (an f32 branch): {err:.3g}")
+    if err > DGCNN_TOL:
+        fail(f"bf16 card vs CPU mesh: {err}")
+
+
+def bf16_phase(sim, eval_dir, train_dir, smi, f32):
+    """model.compute_dtype=bfloat16 on the eval and train phases' trees:
+    cli eval b=128 (flagship) beside f32, its --profile-dir trace's
+    convolution split (no f32 conv kernel left), the card against the CPU
+    on one full-width batch, cli train b=24 with gather_bwd_dtype bf16 too
+    and its fixed-batch step split and trace, DGCNN cli eval b=128.  Every
+    fit held against the plain argmax.  Returns the kernel launches."""
+    root, ckpt = osp.join(eval_dir, "lmo"), osp.join(eval_dir, "ckpt")
+    common = ["--dataset", "lmo", "--data-root", root, "--cls-id", "1",
+              "--exact-knn", "--num-workers", "8", *BF16]
+    res, launches, peak, check_ms = checked_cli_run(
+        sim, "bf16 eval", ["eval", *common, "--torch-checkpoint", ckpt,
+                           "--output-dir", osp.join(eval_dir, "out_bf16")])
+    timing = res["timing"]
+    poses = read_csv_poses(osp.join(eval_dir, "out_bf16", "gt_lmo-test.csv"))
+    if len(poses) != EVAL_FRAMES:
+        fail(f"bf16 eval CSV has {len(poses)} rows, want {EVAL_FRAMES}")
+    n_fit = check_poses(np.stack(list(poses.values())), EVAL_FRAMES)
+    log(f"  {smi}: bf16 cli eval b=128: device ms per batch " + ", ".join(
+        f"{b['device_ms'] - c:.2f}" for b, c in zip(timing, check_ms[1:]))
+        + " (the plain checks' time taken out); f32 (eval phase): "
+        + ", ".join(f"{b['device_ms']:.2f}" for b in f32["eval_timing"])
+        + f"; peak device memory {peak:.2f} GiB (f32: "
+        f"{f32['eval_peak']:.2f}); {len(poses)} rows, {n_fit} fitted; kernel"
+        f" launches {launches}, each held against the plain argmax")
+
+    n_prof, shares, by_name = profile_run(sim, eval_dir, smi, BF16,
+                                          "profile_bf16")
+    launches += n_prof
+    conv16, conv32 = conv_kernels(by_name), conv_kernels(f32["kernels"])
+    for tag, convs in (("f32", conv32), ("bf16", conv16)):
+        total = sum(convs.values())
+        log(f"  {smi}: conv kernels of a traced b=128 eval batch, {tag}: "
+            f"{total / 1e3:.2f} ms per batch")
+        kernel_split(f"{tag} conv", convs)
+    f32_left = sorted(k for k in conv16 if k in conv32
+                      or any(t in k for t in F32_TOKENS))
+    if not conv16 or f32_left:
+        fail(f"bf16 trace: conv kernels {sorted(conv16)[:4]}, f32 ones "
+             f"among them {f32_left[:4]}")
+
+    bf16_card_vs_cpu(root)
+
+    from gdm_tpu_torch.configs import get_config
+
+    troot = osp.join(train_dir, "lmo_train")
+    ckpt_root = osp.join(train_dir, "train_log_bf16")
+    both = [*BF16, "--opt", "model.gather_bwd_dtype=bfloat16"]
+    t0 = time.perf_counter()
+    res, n_val, peak, _ = checked_cli_run(sim, "bf16 train validation", [
+        "train", "--dataset", "lmo", "--data-root", troot, "--cls-id", "1",
+        "--batch-size", str(TRAIN_BATCH), "--epochs", "1", "--eval-every",
+        "1", "--ckpt-root", ckpt_root, "--num-workers", "8", *both])
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line) for line in open(
+        osp.join(ckpt_root, "metrics", "ape.jsonl"))]
+    losses = [r["loss"] for r in rows if "loss" in r]
+    val = res["objects"]["ape"]["val"]
+    if not losses or not all(np.isfinite(losses)) or val is None \
+            or val["val_frames"] != VAL_FRAMES:
+        fail(f"bf16 train: losses {losses}, validation {val}")
+    log(f"  bf16 cli train b={TRAIN_BATCH}, 1 epoch: {len(res['timing'])} "
+        f"steps in {wall:.2f} s end to end (validation and its plain checks "
+        "included); step ms " + ", ".join(f"{r['step_ms']:.2f}"
+                                          for r in res["timing"])
+        + f"; peak device memory {peak:.2f} GiB; losses "
+        f"{[round(x, 4) for x in losses]}; kernel launches {n_val}")
+    launches += n_val
+    cfg = get_config("lmo", [o for o in both if o != "--opt"])
+    fixed = fixed_batch_steps(cfg, troot, n_steps=15, trace=True)
+    log(f"  {smi}: bf16 step split " + ", ".join(
+        f"{k} {v:.2f}" for k, v in fixed["split_ms"].items())
+        + f" ms, peak {fixed['peak_gib']:.2f} GiB; f32 (train phase) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in
+                    f32["train_fixed"]["split_ms"].items())
+        + f" ms, peak {f32['train_fixed']['peak_gib']:.2f} GiB")
+
+    res, n_dg, peak, check_ms = checked_cli_run(sim, "bf16 dgcnn eval", [
+        "eval", *common, *DGCNN, "--torch-checkpoint",
+        osp.join(eval_dir, "ckpt_dgcnn"), "--output-dir",
+        osp.join(eval_dir, "out_dgcnn_bf16")])
+    log(f"  {smi}: bf16 dgcnn cli eval b=128: device ms per batch "
+        + ", ".join(f"{b['device_ms'] - c:.2f}"
+                    for b, c in zip(res["timing"], check_ms[1:]))
+        + "; f32 (dgcnn phase): " + ", ".join(
+            f"{ms:.2f}" for ms in f32["dgcnn_timing"])
+        + f" (plain checks' time taken out); peak {peak:.2f} GiB; kernel "
+        f"launches {n_dg}")
+    return launches + n_dg
 
 
 YCBV_TEST = {oid: 8 if oid == 1 else 6 for oid in range(1, 22)}   # 128
@@ -3080,9 +3332,10 @@ def main() -> int:
         write_eval_tree(eval_dir)
         launches_serve, _ = serving_phase(sim, eval_dir, smi_line)
         phase("eval")
-        launches_eval, eval_timing = eval_phase(sim, eval_dir)
+        launches_eval, eval_timing, eval_peak = eval_phase(sim, eval_dir)
         phase("profile")
-        launches_profile, _ = profile_run(sim, eval_dir, smi_line)
+        launches_profile, _, f32_kernels = profile_run(sim, eval_dir,
+                                                       smi_line)
         phase("refine")
         launches_refine, _ = refine_phase(sim, eval_dir, eval_timing)
         phase("vsd")
@@ -3091,9 +3344,14 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as workdir:
             launches_stacked, _ = stacked_phase(sim, workdir)
         phase("train")
-        launches_train, _ = train_phase(sim, train_dir)
+        launches_train, train_res = train_phase(sim, train_dir)
         phase("dgcnn")
-        launches_dgcnn = dgcnn_phase(sim, eval_dir, train_dir)
+        launches_dgcnn, dgcnn_timing = dgcnn_phase(sim, eval_dir, train_dir)
+        phase("bf16")
+        launches_bf16 = bf16_phase(sim, eval_dir, train_dir, smi_line, {
+            "eval_timing": eval_timing, "eval_peak": eval_peak,
+            "kernels": f32_kernels, "train_fixed": train_res["fixed"],
+            "dgcnn_timing": dgcnn_timing})
     phase("ycbv")
     with tempfile.TemporaryDirectory() as workdir:
         launches_ycbv, ycbv_stamped = ycbv_phase(sim, workdir)
@@ -3111,7 +3369,7 @@ def main() -> int:
         "launches": (launches_eval + launches_serve + launches_train
                      + launches_refine + launches_stacked
                      + launches_vsd["cosine_argmax"] + launches_ycbv
-                     + launches_dgcnn + launches_profile),
+                     + launches_dgcnn + launches_profile + launches_bf16),
         "launches_eval": launches_eval,
         "launches_serve": launches_serve,
         "launches_profile": launches_profile,
@@ -3121,6 +3379,7 @@ def main() -> int:
         "launches_vsd": launches_vsd["cosine_argmax"],
         "launches_ycbv": launches_ycbv,
         "launches_dgcnn": launches_dgcnn,
+        "launches_bf16": launches_bf16,
         "max_abs_err": err,
         "ms": at["eval"]["ms"],
         "plain_ms": at["eval"]["plain_ms"],

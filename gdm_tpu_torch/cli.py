@@ -162,7 +162,8 @@ def model_config(dataset: str, opts):
 
     cfg = get_config(dataset, opts)
     default = ModelConfig()
-    for field in ("randla_d_out", "spline_kernel", "mesh_knn_k"):
+    for field in ("randla_d_out", "randla_k", "spline_kernel",
+                  "mesh_knn_k"):
         val, want = getattr(cfg.model, field), getattr(default, field)
         if tuple(np.atleast_1d(val)) != tuple(np.atleast_1d(want)):
             raise ValueError(

@@ -5,8 +5,12 @@ training, the BOP loader and the CLI read, in the same ``config.data.*``
 / ``config.model.*`` / ``config.solver.*`` layout and with the same
 preset values (reference config/lmo_cfg.py, lmfull_cfg.py,
 ycbv_cfg.py).  ``model.backbone`` picks the flagship ``randla_spline``
-or ``dgcnn`` (config 5); any other name raises.  bf16 compute is not
-ported (ROADMAP queue 1 item 11f).
+or ``dgcnn`` (config 5); any other name raises.  ``model.compute_dtype``
+and ``model.gather_bwd_dtype`` take ``float32`` or ``bfloat16``; any
+other value raises.  The field set is the JAX package's:
+``model.randla_k``, ``solver.num_workers`` and ``checkpoints_dir`` are
+taken and read by nothing (as there; the CLI refuses a ``randla_k`` other
+than 16 and reads ``--num-workers``).
 """
 
 from __future__ import annotations
@@ -48,7 +52,13 @@ class ModelConfig:
     n_mesh_node: int = 4096
     neighbor_dis_th: float = 0.02   # x diameter: circle-loss positive radius
     backbone: str = "randla_spline"  # or "dgcnn"
+    compute_dtype: str = "float32"   # or "bfloat16": the encoder (both
+    # DGCNN trunks) computes in it; parameters, BN statistics, heads,
+    # losses and the flagship's mesh branch stay f32
+    gather_bwd_dtype: str = "float32"  # or "bfloat16": the flagship's
+    # neighbour-gather backward rounds each cotangent row to it (n >= 512)
     randla_d_out: Sequence[int] = (32, 64, 128, 256)
+    randla_k: int = 16
     mesh_knn_k: int = 4
     spline_kernel: int = 5
     dgcnn_exact_knn: bool = False   # the JAX package's switch to exact
@@ -58,6 +68,7 @@ class ModelConfig:
 
 
 BACKBONES = ("randla_spline", "dgcnn")
+DTYPES = ("float32", "bfloat16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +87,8 @@ class SolverConfig:
     bn_decay_step: float = 2e5
     bn_momentum_clip: float = 0.01
     checkpoint_every_epochs: int = 10
+    num_workers: int = 4            # read by nothing: the CLI takes
+    # --num-workers
     # non-finite-update guard (optax.apply_if_finite semantics): updates
     # whose gradients hold NaN/inf are skipped up to this many times in
     # a row, then pass through; 0 disables it
@@ -87,6 +100,7 @@ class Config:
     data: DataConfig
     model: ModelConfig
     solver: SolverConfig = SolverConfig()
+    checkpoints_dir: str = "train_log/checkpoints"   # read by nothing
 
 
 LMO = Config(
@@ -172,6 +186,10 @@ def get_config(name: str, opts: Sequence[str] = ()) -> Config:
         if path == "model.backbone" and raw not in BACKBONES:
             raise ValueError(f"--opt model.backbone={raw}: the backbones "
                              f"are {', '.join(BACKBONES)}")
+        if path in ("model.compute_dtype", "model.gather_bwd_dtype") \
+                and raw not in DTYPES:
+            raise ValueError(f"--opt {path}={raw}: the dtypes are "
+                             f"{', '.join(DTYPES)}")
         sub = getattr(cfg, section)
         val = _parse_value(path, getattr(sub, field), raw)
         cfg = dataclasses.replace(
@@ -188,4 +206,6 @@ def config_from_dict(d: dict) -> Config:
 
     return Config(data=part(DataConfig, d["data"]),
                   model=part(ModelConfig, d["model"]),
-                  solver=part(SolverConfig, d["solver"]))
+                  solver=part(SolverConfig, d["solver"]),
+                  checkpoints_dir=d.get("checkpoints_dir",
+                                        Config.checkpoints_dir))

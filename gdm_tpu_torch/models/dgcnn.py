@@ -18,6 +18,12 @@ BatchNorm2d does.
 
 The graphs are exact: the JAX package's default ``approx_max_k`` graphs
 (recall 0.85) have no counterpart here.
+
+``dtype`` (bfloat16, or None for the parameters' dtype) is the trunk's
+compute dtype: the cloud is cast to it before the first graph's edges,
+every edge conv and ``conv9`` compute in it, and the trunk returns it.
+The KNN coordinates are always widened to f32 (the JAX package's
+graph_feature_b), so graphs 2 and 3 rank bf16 features in f32.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 from torch import nn
 
 from gdm_tpu_torch.models.layers import BatchNorm, Dense, Dropout, \
-    gather_rows
+    LeakyReLU02, cast, gather_rows
 from gdm_tpu_torch.ops.knn import knn
 
 
@@ -50,9 +56,11 @@ def graph_feature_b(x: torch.Tensor, k: int, pos: torch.Tensor | None = None,
     return torch.cat([xj - xi, xi], dim=-1), idx
 
 
-def _conv_bn_lrelu(c_in: int, c_out: int) -> nn.Sequential:
-    return nn.Sequential(Dense(c_in, c_out, bias=False),
-                         BatchNorm(c_out, eps=1e-5), nn.LeakyReLU(0.2))
+def _conv_bn_lrelu(c_in: int, c_out: int,
+                   dtype: torch.dtype | None) -> nn.Sequential:
+    return nn.Sequential(Dense(c_in, c_out, bias=False, dtype=dtype),
+                         BatchNorm(c_out, eps=1e-5, dtype=dtype),
+                         LeakyReLU02())
 
 
 class DgcnnTrunk(nn.Module):
@@ -60,26 +68,28 @@ class DgcnnTrunk(nn.Module):
     [B, n, 9] xyz | rgb | normal -> [B, n, feat_dim]."""
 
     def __init__(self, k: int = 16, embed_dim: int = 1024,
-                 feat_dim: int = 128, dropout: float = 0.1):
+                 feat_dim: int = 128, dropout: float = 0.1,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.k = k
-        self.conv1 = _conv_bn_lrelu(18, 64)
-        self.conv2 = _conv_bn_lrelu(64, 64)
-        self.conv3 = _conv_bn_lrelu(128, 64)
-        self.conv4 = _conv_bn_lrelu(64, 64)
-        self.conv5 = _conv_bn_lrelu(128, 64)
-        self.conv6 = _conv_bn_lrelu(192, embed_dim)
-        self.conv7 = _conv_bn_lrelu(embed_dim + 192, 512)
-        self.conv8 = _conv_bn_lrelu(512, 256)
+        self.dtype = dtype
+        self.conv1 = _conv_bn_lrelu(18, 64, dtype)
+        self.conv2 = _conv_bn_lrelu(64, 64, dtype)
+        self.conv3 = _conv_bn_lrelu(128, 64, dtype)
+        self.conv4 = _conv_bn_lrelu(64, 64, dtype)
+        self.conv5 = _conv_bn_lrelu(128, 64, dtype)
+        self.conv6 = _conv_bn_lrelu(192, embed_dim, dtype)
+        self.conv7 = _conv_bn_lrelu(embed_dim + 192, 512, dtype)
+        self.conv8 = _conv_bn_lrelu(512, 256, dtype)
         self.dp1 = Dropout(dropout)
-        self.conv9 = Dense(256, feat_dim, bias=False)
+        self.conv9 = Dense(256, feat_dim, bias=False, dtype=dtype)
 
     def forward(self, cloud: torch.Tensor,
                 knn_chunk: int = 1024) -> torch.Tensor:
         def edges(x, pos=None):
             return graph_feature_b(x, self.k, pos, knn_chunk)[0]
 
-        e = edges(cloud, cloud[..., :3])                    # [B, n, k, 18]
+        e = edges(cast(cloud, self.dtype), cloud[..., :3])  # [B, n, k, 18]
         x1 = self.conv2(self.conv1(e)).amax(dim=2)
         x2 = self.conv4(self.conv3(edges(x1))).amax(dim=2)
         x3 = self.conv5(edges(x2)).amax(dim=2)
@@ -99,8 +109,9 @@ class DgcnnMeshEmb(DgcnnTrunk):
     | normal) -> [M, feat_dim], the trunk on a batch of one."""
 
     def __init__(self, k: int = 20, embed_dim: int = 1024,
-                 feat_dim: int = 128, dropout: float = 0.1):
-        super().__init__(k, embed_dim, feat_dim, dropout)
+                 feat_dim: int = 128, dropout: float = 0.1,
+                 dtype: torch.dtype | None = None):
+        super().__init__(k, embed_dim, feat_dim, dropout, dtype)
 
     def forward(self, mesh_x: torch.Tensor,
                 knn_chunk: int = 1024) -> torch.Tensor:

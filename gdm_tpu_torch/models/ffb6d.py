@@ -13,6 +13,13 @@ run NCHW in channels_last memory, so the fusion layers' switch to
 after the PSP head, 0.15 after up_1 and up_2; gdm_tpu/models/ffb6d.py:91)
 sits at index 1 of those stages' Sequentials, where the reference keeps
 its drop modules; it holds no parameters.
+
+``dtype`` (bfloat16, or None for the parameters' dtype) is the compute
+dtype of every layer: the stem and ``fc0`` cast ``rgb`` and
+``cld_rgb_nrm`` to it, and every fusion block then runs in it (the
+output too; GeoMatch widens it).  ``gather_bwd_dtype`` reaches every
+neighbour gather's backward, as the JAX package's module-wide switch
+does, but per model.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from torch import nn
 from gdm_tpu_torch.models.layers import (
     DenseBNAct,
     Dropout,
+    cast,
     gather_rows,
     randla_dense,
 )
@@ -47,52 +55,57 @@ def _unflat(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return x.reshape(x.shape[0], h, w, x.shape[-1]).permute(0, 3, 1, 2)
 
 
-def _fuse_list(c_ins, c_outs) -> nn.ModuleList:
-    return nn.ModuleList(DenseBNAct(i, o) for i, o in zip(c_ins, c_outs))
+def _fuse_list(c_ins, c_outs, dtype) -> nn.ModuleList:
+    return nn.ModuleList(DenseBNAct(i, o, dtype=dtype)
+                         for i, o in zip(c_ins, c_outs))
 
 
 class FFB6DEmb(nn.Module):
-    def __init__(self, d_out=(32, 64, 128, 256)):
+    def __init__(self, d_out=(32, 64, 128, 256),
+                 dtype: torch.dtype | None = None,
+                 gather_bwd_dtype: torch.dtype | None = None):
         super().__init__()
-        layer1, layer2, layer3, layer4 = resnet18_stages()
-        self.cnn_pre_stages = Stem()
+        self.dtype, self.gather_bwd_dtype = dtype, gather_bwd_dtype
+        layer1, layer2, layer3, layer4 = resnet18_stages(dtype)
+        self.cnn_pre_stages = Stem(dtype)
         self.cnn_ds_stages = nn.ModuleList([
             layer1, layer2, nn.Sequential(layer3, layer4),
-            nn.Sequential(PSPModule(512, 1024), Dropout(0.3))])
+            nn.Sequential(PSPModule(512, 1024, dtype=dtype), Dropout(0.3))])
         # cnn.final serves up stage 2 and, after up_3, the last stage; it
         # is registered once, at cnn_up_stages.2.0
         self.cnn_up_stages = nn.ModuleList([
-            nn.Sequential(PSPUpsample(1024, 256), Dropout(0.15)),
-            nn.Sequential(PSPUpsample(256, 64), Dropout(0.15)),
-            nn.Sequential(final_layer()),
-            nn.Sequential(PSPUpsample(64, 64))])
+            nn.Sequential(PSPUpsample(1024, 256, dtype), Dropout(0.15)),
+            nn.Sequential(PSPUpsample(256, 64, dtype), Dropout(0.15)),
+            nn.Sequential(final_layer(dtype)),
+            nn.Sequential(PSPUpsample(64, 64, dtype))])
 
-        self.rndla_pre_stages = randla_dense(9, 8)
+        self.rndla_pre_stages = randla_dense(9, 8, dtype=dtype)
         d_in = [8] + [2 * d for d in d_out[:-1]]
         self.rndla_ds_stages = nn.ModuleList(
-            DilatedResBlock(i, d) for i, d in zip(d_in, d_out))
+            DilatedResBlock(i, d, dtype, gather_bwd_dtype)
+            for i, d in zip(d_in, d_out))
         dec = decoder_widths(d_out)
         dec_in = [2 * d_out[-1] + 2 * d_out[-2], dec[0] + 2 * d_out[-3],
                   dec[1] + 2 * d_out[-4], dec[2] + 2 * d_out[0]]
         self.rndla_up_stages = nn.ModuleList(
-            randla_dense(i, o) for i, o in zip(dec_in, dec))
+            randla_dense(i, o, dtype=dtype) for i, o in zip(dec_in, dec))
 
         ds_rgb = (64, 128, 512, 1024)
         ds_pts = tuple(2 * d for d in d_out)
         up_rgb = (256, 64, 64)
         up_pts = (ds_pts[-2], ds_pts[-3], ds_pts[-4])
-        self.ds_fuse_r2p_pre_layers = _fuse_list(ds_rgb, ds_pts)
+        self.ds_fuse_r2p_pre_layers = _fuse_list(ds_rgb, ds_pts, dtype)
         self.ds_fuse_r2p_fuse_layers = _fuse_list(
-            [2 * c for c in ds_pts], ds_pts)
-        self.ds_fuse_p2r_pre_layers = _fuse_list(ds_pts, ds_rgb)
+            [2 * c for c in ds_pts], ds_pts, dtype)
+        self.ds_fuse_p2r_pre_layers = _fuse_list(ds_pts, ds_rgb, dtype)
         self.ds_fuse_p2r_fuse_layers = _fuse_list(
-            [2 * c for c in ds_rgb], ds_rgb)
-        self.up_fuse_r2p_pre_layers = _fuse_list(up_rgb, up_pts)
+            [2 * c for c in ds_rgb], ds_rgb, dtype)
+        self.up_fuse_r2p_pre_layers = _fuse_list(up_rgb, up_pts, dtype)
         self.up_fuse_r2p_fuse_layers = _fuse_list(
-            [2 * c for c in up_pts], up_pts)
-        self.up_fuse_p2r_pre_layers = _fuse_list(up_pts, up_rgb)
+            [2 * c for c in up_pts], up_pts, dtype)
+        self.up_fuse_p2r_pre_layers = _fuse_list(up_pts, up_rgb, dtype)
         self.up_fuse_p2r_fuse_layers = _fuse_list(
-            [2 * c for c in up_rgb], up_rgb)
+            [2 * c for c in up_rgb], up_rgb, dtype)
 
     def _cnn_up_stage(self, i: int, x: torch.Tensor) -> torch.Tensor:
         if i < 3:
@@ -103,23 +116,26 @@ class FFB6DEmb(nn.Module):
               r2p_fuse):
         """One fusion step: point -> rgb and rgb -> point."""
         h, w = rgb0.shape[2:]
+        bwd = self.gather_bwd_dtype
         rgb_flat = _flat(rgb0)
-        p2r = nearest_upsample(p2r_pre(p0), p2r_idx)
+        p2r = nearest_upsample(p2r_pre(p0), p2r_idx, bwd)
         rgb = _unflat(p2r_fuse(torch.cat([rgb_flat, p2r], dim=-1)), h, w)
-        r2p = r2p_pre(max_pool_neighbours(rgb_flat, r2p_idx))
+        r2p = r2p_pre(max_pool_neighbours(rgb_flat, r2p_idx, bwd))
         p = r2p_fuse(torch.cat([p0, r2p], dim=-1))
         return rgb, p
 
     def forward(self, inputs: dict) -> torch.Tensor:
-        rgb = self.cnn_pre_stages(inputs["rgb"].permute(0, 3, 1, 2))
-        p = self.rndla_pre_stages(inputs["cld_rgb_nrm"])
+        bwd = self.gather_bwd_dtype
+        rgb = self.cnn_pre_stages(
+            cast(inputs["rgb"], self.dtype).permute(0, 3, 1, 2))
+        p = self.rndla_pre_stages(cast(inputs["cld_rgb_nrm"], self.dtype))
 
         ds_emb = []
         for i in range(4):
             rgb0 = self.cnn_ds_stages[i](rgb)
             f_enc = self.rndla_ds_stages[i](
                 p, inputs[f"cld_xyz{i}"], inputs[f"cld_nei_idx{i}"])
-            p0 = max_pool_neighbours(f_enc, inputs[f"cld_sub_idx{i}"])
+            p0 = max_pool_neighbours(f_enc, inputs[f"cld_sub_idx{i}"], bwd)
             if i == 0:
                 ds_emb.append(f_enc)
             rgb, p = self._fuse(
@@ -133,7 +149,8 @@ class FFB6DEmb(nn.Module):
 
         for i in range(3):
             rgb0 = self._cnn_up_stage(i, rgb)
-            f_interp = nearest_upsample(p, inputs[f"cld_interp_idx{3 - i}"])
+            f_interp = nearest_upsample(
+                p, inputs[f"cld_interp_idx{3 - i}"], bwd)
             p0 = self.rndla_up_stages[i](
                 torch.cat([ds_emb[-i - 2], f_interp], dim=-1))
             rgb, p = self._fuse(
@@ -145,11 +162,11 @@ class FFB6DEmb(nn.Module):
                 self.up_fuse_r2p_fuse_layers[i])
 
         rgb = self._cnn_up_stage(3, rgb)
-        f_interp = nearest_upsample(p, inputs["cld_interp_idx0"])
+        f_interp = nearest_upsample(p, inputs["cld_interp_idx0"], bwd)
         p = self.rndla_up_stages[3](torch.cat([ds_emb[0], f_interp], dim=-1))
 
         choose = inputs["choose"]
         if choose.dim() == 3:                              # [B, 1, N]
             choose = choose[:, 0, :]
-        rgb_c = gather_rows(_flat(rgb), choose)            # [B, N, 64]
+        rgb_c = gather_rows(_flat(rgb), choose, bwd)       # [B, N, 64]
         return torch.cat([rgb_c, p], dim=-1)               # [B, N, 128]

@@ -8,6 +8,13 @@ training losses (geomatch.py:111-131): the circle matching loss, the
 focal seg loss and their uncertainty weighting, whose parameter
 ``awl.params`` exists only in a model built with ``awl=True``, so the
 eval model's state dict stays the one inference loads.
+
+``compute_dtype`` (torch.bfloat16, or None for the parameters' dtype) is
+the scene encoder's (gdm_tpu/models/geomatch.py ``compute_dtype``): its
+output is widened to f32 before the heads, and the heads, the losses and
+the SplineCNN mesh branch compute in f32.  ``gather_bwd_dtype`` is the
+encoder's gather backward (models/layers.gather_rows).  Parameters stay
+f32 either way, so checkpoints do not depend on either.
 """
 
 from __future__ import annotations
@@ -64,10 +71,13 @@ class GeoMatch(nn.Module):
     def __init__(self, feat_dim: int = 128, d_out=(32, 64, 128, 256),
                  spline_kernel: int = 5, awl: bool = False,
                  circle_m: float = 0.2,
-                 circle_gamma: float = 16.0):
+                 circle_gamma: float = 16.0,
+                 compute_dtype: torch.dtype | None = None,
+                 gather_bwd_dtype: torch.dtype | None = None):
         super().__init__()
         self.circle_m, self.circle_gamma = circle_m, circle_gamma
-        self.pcd_emb = FFB6DEmb(d_out)
+        self.compute_dtype = compute_dtype
+        self.pcd_emb = FFB6DEmb(d_out, compute_dtype, gather_bwd_dtype)
         self.model_emb = SplineMeshEncoder(9, feat_dim, spline_kernel)
         self.awl = AutomaticWeightedLoss(2) if awl else None
         self.feature_encoding_layer = MLPHead(
@@ -84,6 +94,8 @@ class GeoMatch(nn.Module):
                 mesh_features: torch.Tensor | None = None,
                 train: bool = False) -> dict:
         rgbd_emb = self.pcd_emb(inputs)                           # [B,N,128]
+        if self.compute_dtype is not None:
+            rgbd_emb = rgbd_emb.float()
         if mesh_features is None:
             mesh_features = self.encode_mesh(mesh)
         rgbd_features = self.feature_encoding_layer(rgbd_emb)

@@ -14,6 +14,13 @@ the depth-scaled 3 mm radius under the GT pose ``inputs['RT']``, its rows
 are valid where ``inputs['origin_labels'] == 1``, and the mesh positions
 of the loss are ``mesh_x[:, :3]``.  ``awl.params`` exists only in a model
 built with ``awl=True``.
+
+``compute_dtype`` (torch.bfloat16, or None for the parameters' dtype)
+narrows both trunks, the mesh branch's too (unlike the flagship's), as
+gdm_tpu/models/geomatch_dgcnn.py does; the scene embedding and the mesh
+features are widened to f32 before the heads and the loss.  The gathers'
+backward keeps the cotangent's dtype: the JAX CLI sets its
+``gather_bwd_dtype`` switch for the flagship only.
 """
 
 from __future__ import annotations
@@ -55,12 +62,16 @@ class GeoMatchDGCNN(nn.Module):
     def __init__(self, feat_dim: int = 128, k_scene: int = 16,
                  k_mesh: int = 20, positive_r_mm: float = 3.0,
                  awl: bool = False, circle_m: float = 0.2,
-                 circle_gamma: float = 16.0):
+                 circle_gamma: float = 16.0,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.positive_r_mm = positive_r_mm
         self.circle_m, self.circle_gamma = circle_m, circle_gamma
-        self.pcd_emb = DgcnnPointEmb(k_scene, feat_dim=feat_dim)
-        self.model_emb = DgcnnMeshEmb(k_mesh, feat_dim=feat_dim)
+        self.compute_dtype = compute_dtype
+        self.pcd_emb = DgcnnPointEmb(k_scene, feat_dim=feat_dim,
+                                     dtype=compute_dtype)
+        self.model_emb = DgcnnMeshEmb(k_mesh, feat_dim=feat_dim,
+                                      dtype=compute_dtype)
         self.awl = AutomaticWeightedLoss(2) if awl else None
         self.feature_encoding_layer = MLPHead(
             feat_dim, (128, 128, 128, feat_dim), final_bias=False)
@@ -70,14 +81,18 @@ class GeoMatchDGCNN(nn.Module):
     def encode_mesh(self, mesh_x: torch.Tensor,
                     knn_chunk: int = 1024) -> torch.Tensor:
         """Mesh branch alone: [M, feat_dim]."""
-        return self.model_emb(mesh_x, knn_chunk)
+        return self._widen(self.model_emb(mesh_x, knn_chunk))
+
+    def _widen(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.compute_dtype is None else x.float()
 
     def forward(self, inputs: dict, mesh_x: torch.Tensor,
                 mesh_features: torch.Tensor | None = None,
                 train: bool = False, knn_chunk: int = 1024) -> dict:
         """``knn_chunk`` queries per distance block of the graphs bound
         peak memory and change no result."""
-        rgbd_emb = self.pcd_emb(inputs["cld_rgb_nrm"], knn_chunk)
+        rgbd_emb = self._widen(self.pcd_emb(inputs["cld_rgb_nrm"],
+                                            knn_chunk))
         if mesh_features is None:
             mesh_features = self.encode_mesh(mesh_x, knn_chunk)
         rgbd_features = self.feature_encoding_layer(rgbd_emb)

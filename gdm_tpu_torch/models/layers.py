@@ -18,6 +18,33 @@ attribute that the train step sets each step from its schedule
 (:func:`set_train_step_state`), as the reference's BNMomentumScheduler
 does.
 
+Compute dtype (``dtype``, Flax's ``dtype=`` of gdm_tpu/models/layers.py):
+None computes in the dtype of the parameters and the input, as the f32
+model (and the tests' float64 copies) always did.  A dtype (bfloat16)
+keeps the parameters and BN buffers in f32 and casts at each call: a
+Dense or conv casts its input and its weight (and bias) to it; batch norm
+takes its training statistics in f32 from the widened input, casts the
+mean, ``rsqrt(var + eps) * scale`` and the bias down to the input's dtype
+before it applies them (torch would promote ``bf16 - f32`` to f32), and
+returns its dtype.  No ``torch.autocast``: its per-op policy is not
+Flax's.  Each bf16 op rounds its result, as XLA does, with three
+exceptions that follow XLA's rounding rather than torch's: a Dense or
+conv adds its bias after the product is rounded (torch would fuse it);
+LeakyReLU's slope is 0.2 rounded to the input's dtype (JAX's weakly
+typed constant); and a reduction of a bf16 elementwise result (softmax's
+and log-softmax's sums of exp, attentive pooling's weighted sum) sums the
+unrounded f32 values, because JAX widens a bf16 reduction's input to
+f32 and XLA fuses that widening into the op that produces it
+(:func:`softmax`, :func:`log_softmax`, :func:`weighted_sum`).  Batch
+norm's training statistics are one such reduction in JAX too, of the
+unrounded product; the port takes them from the rounded output.
+
+:func:`gather_rows` carries the JAX package's gather backward
+(gdm_tpu/models/randla.py ``_gather_bwd``): from a source of n >= 512
+rows each cotangent row is rounded to ``bwd_dtype`` (or kept in its own
+dtype when that is None) and the rows are summed in f32; from a smaller
+source they are summed in the cotangent's dtype (``segment_sum``).
+
 Dropout is element-wise, as ``flax.linen.Dropout``: keep with probability
 1 - p, scale the kept values by 1 / (1 - p).  Its masks come from a
 ``torch.Generator`` that the train step seeds from (seed, step), so a
@@ -40,10 +67,11 @@ class BatchNorm(nn.Module):
     running_var, num_batches_tracked) so reference state dicts load."""
 
     def __init__(self, features: int, eps: float = 1e-5,
-                 channel_dim: int = -1):
+                 channel_dim: int = -1, dtype: torch.dtype | None = None):
         super().__init__()
         self.eps = eps
         self.channel_dim = channel_dim
+        self.dtype = dtype
         self.momentum = 0.1
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -73,8 +101,10 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean.view(shape)) * inv.view(shape)
-                + self.bias.view(shape))
+        dt = x.dtype
+        y = ((x - mean.to(dt).view(shape)) * inv.to(dt).view(shape)
+             + self.bias.to(dt).view(shape))
+        return cast(y, self.dtype)
 
 
 class Dropout(nn.Module):
@@ -112,26 +142,75 @@ def set_train_step_state(model: nn.Module, momentum: float,
 class _BNHolder(nn.Module):
     """The reference's BN wrapper: one child named ``bn``."""
 
-    def __init__(self, features: int, eps: float):
+    def __init__(self, features: int, eps: float,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.bn = BatchNorm(features, eps)
+        self.bn = BatchNorm(features, eps, dtype=dtype)
+
+
+def cast(x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """``x`` in ``dtype``; None leaves it as it is."""
+    return x if dtype is None else x.to(dtype)
 
 
 class Dense(nn.Module):
     """A 1x1 point convolution: ``weight`` [out, in] (+ ``bias``)."""
 
-    def __init__(self, c_in: int, c_out: int, bias: bool = True):
+    def __init__(self, c_in: int, c_out: int, bias: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(c_out, c_in))
         self.bias = nn.Parameter(torch.zeros(c_out)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        dt = self.dtype
+        if dt is None:
+            return F.linear(x, self.weight, self.bias)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+def _narrow(x: torch.Tensor) -> bool:
+    return x.dtype == torch.bfloat16
 
 
 def leaky_relu02(x: torch.Tensor) -> torch.Tensor:
-    """LeakyReLU(0.2), the RandLA activation."""
-    return F.leaky_relu(x, 0.2)
+    """LeakyReLU(0.2), the RandLA and DGCNN activation; in bf16 its slope
+    is bf16(0.2) = 0.2001953125, as JAX's."""
+    return F.leaky_relu(x, 0.2001953125 if _narrow(x) else 0.2)
+
+
+class LeakyReLU02(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu02(x)
+
+
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jax.nn.softmax``; in bf16 the normaliser sums the unrounded
+    exp (module docstring)."""
+    if not _narrow(x):
+        return torch.softmax(x, dim)
+    e = torch.exp((x - x.amax(dim, keepdim=True)).float())
+    return e.to(x.dtype) / e.sum(dim, keepdim=True).to(x.dtype)
+
+
+def log_softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jax.nn.log_softmax``; in bf16 the log-sum sums the unrounded exp
+    (module docstring)."""
+    if not _narrow(x):
+        return torch.log_softmax(x, dim)
+    shifted = x - x.amax(dim, keepdim=True)
+    total = torch.exp(shifted.float()).sum(dim, keepdim=True)
+    return shifted - torch.log(total.to(x.dtype))
+
+
+def weighted_sum(x: torch.Tensor, w: torch.Tensor, dim: int) -> torch.Tensor:
+    """``sum(x * w, dim)``; in bf16 the products stay unrounded in f32
+    (module docstring)."""
+    if not _narrow(x):
+        return torch.sum(x * w, dim=dim)
+    return torch.sum(x.float() * w.float(), dim=dim).to(x.dtype)
 
 
 class DenseBNAct(nn.Module):
@@ -142,13 +221,14 @@ class DenseBNAct(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, bn: bool = True,
                  act: Callable | None = F.relu, bias: bool = True,
-                 bn_eps: float = 1e-5, bn_attr: str = "normlayer"):
+                 bn_eps: float = 1e-5, bn_attr: str = "normlayer",
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv = Dense(c_in, c_out, bias=bias and not bn)
+        self.conv = Dense(c_in, c_out, bias=bias and not bn, dtype=dtype)
         self.act = act
         self.bn_attr = bn_attr if bn else None
         if bn:
-            setattr(self, bn_attr, _BNHolder(c_out, bn_eps))
+            setattr(self, bn_attr, _BNHolder(c_out, bn_eps, dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
@@ -160,9 +240,11 @@ class DenseBNAct(nn.Module):
 
 
 def randla_dense(c_in: int, c_out: int,
-                 act: Callable | None = leaky_relu02) -> DenseBNAct:
+                 act: Callable | None = leaky_relu02,
+                 dtype: torch.dtype | None = None) -> DenseBNAct:
     """The RandLA-side DenseBNAct: BN eps 1e-6, LeakyReLU(0.2)."""
-    return DenseBNAct(c_in, c_out, act=act, bn_eps=1e-6, bn_attr="bn")
+    return DenseBNAct(c_in, c_out, act=act, bn_eps=1e-6, bn_attr="bn",
+                      dtype=dtype)
 
 
 class MLPHead(nn.Sequential):
@@ -179,13 +261,45 @@ class MLPHead(nn.Sequential):
         super().__init__(*layers)
 
 
-def gather_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+# from this many source rows the JAX package's gather backward is a
+# one-hot contraction summed in f32 (gdm_tpu/models/randla.py
+# _ONEHOT_BWD_MIN_N); below it, a segment sum in the cotangent's dtype
+ONEHOT_BWD_MIN_N = 512
+
+
+class _GatherRows(torch.autograd.Function):
+    """Flat row gather from B sources of n rows each, whose backward sums
+    as the JAX package's does."""
+
+    @staticmethod
+    def forward(ctx, flat, flat_idx, n, bwd_dtype):
+        ctx.save_for_backward(flat_idx)
+        ctx.n_rows, ctx.n, ctx.bwd_dtype = flat.shape[0], n, bwd_dtype
+        return flat.index_select(0, flat_idx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (flat_idx,) = ctx.saved_tensors
+        acc, rows = ct.dtype, ct
+        if ctx.n >= ONEHOT_BWD_MIN_N:
+            acc = torch.promote_types(ct.dtype, torch.float32)
+            rows = ct.to(ctx.bwd_dtype or ct.dtype).to(acc)
+        out = torch.zeros(ctx.n_rows, ct.shape[-1], dtype=acc,
+                          device=ct.device).index_add_(0, flat_idx, rows)
+        return out.to(ct.dtype), None, None, None
+
+
+def gather_rows(feats: torch.Tensor, idx: torch.Tensor,
+                bwd_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Batched row gather: [B, N, C] by [B, ...] int64 -> [B, ..., C].
 
     One flat index_select over [B*N, C] with per-batch offsets
-    (gdm_tpu.models.randla.gather_neighbours_b forward)."""
+    (gdm_tpu.models.randla.gather_neighbours_b forward); its backward
+    rounds the cotangent rows to ``bwd_dtype`` where N >= 512 (the
+    module docstring)."""
     b, n, c = feats.shape
     off = (torch.arange(b, device=idx.device) * n).view(
         (b,) + (1,) * (idx.dim() - 1))
-    flat = feats.reshape(b * n, c).index_select(0, (idx + off).reshape(-1))
+    flat = _GatherRows.apply(feats.reshape(b * n, c),
+                             (idx + off).reshape(-1), n, bwd_dtype)
     return flat.view(idx.shape + (c,))

@@ -5,6 +5,11 @@ align_corners=True and adaptive average pooling uses torch's uneven bins;
 both run as two small matrix products with the same matrices the JAX
 package builds.  ``final`` is a 1x1 conv followed by a channel
 log-softmax.
+
+Under a compute dtype (models/layers.py) the convolutions cast to it, the
+resize matrices take the map's dtype and PReLU's slope is cast to it, as
+in the JAX package; its pooling matrices are f32 there, so a bf16 map is
+pooled in f32 and the next conv narrows the result.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from gdm_tpu_torch.models.layers import BatchNorm
+from gdm_tpu_torch.models.layers import BatchNorm, log_softmax
 from gdm_tpu_torch.models.resnet import Conv
 
 
@@ -62,7 +67,9 @@ def resize_bilinear_ac(x: torch.Tensor, out_hw) -> torch.Tensor:
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """In f32 at least (gdm_tpu/models/pspnet.py builds f32 matrices)."""
     h, w = x.shape[2:]
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     return _apply_hw(x, _adaptive_pool_matrix(h, out_hw[0]),
                      _adaptive_pool_matrix(w, out_hw[1]))
 
@@ -90,12 +97,13 @@ class PReLU(nn.Module):
         self.weight = nn.Parameter(torch.full((1,), 0.25))
 
     def forward(self, x):
-        return torch.clamp_min(x, 0) + self.weight * torch.clamp_max(x, 0)
+        return (torch.clamp_min(x, 0)
+                + self.weight.to(x.dtype) * torch.clamp_max(x, 0))
 
 
 class ChannelLogSoftmax(nn.Module):
     def forward(self, x):
-        return torch.log_softmax(x, dim=1)
+        return log_softmax(x, 1)
 
 
 class PSPModule(nn.Module):
@@ -103,12 +111,14 @@ class PSPModule(nn.Module):
     (1, 2, 3, 6), then ``bottleneck`` over [priors..., x] and ReLU."""
 
     def __init__(self, c_in: int = 512, out_features: int = 1024,
-                 sizes=(1, 2, 3, 6)):
+                 sizes=(1, 2, 3, 6), dtype: torch.dtype | None = None):
         super().__init__()
         self.stages = nn.ModuleList(
-            nn.Sequential(AdaptivePool(s), Conv(c_in, c_in, 1, bias=False))
+            nn.Sequential(AdaptivePool(s),
+                          Conv(c_in, c_in, 1, bias=False, dtype=dtype))
             for s in sizes)
-        self.bottleneck = Conv(c_in * (len(sizes) + 1), out_features, 1)
+        self.bottleneck = Conv(c_in * (len(sizes) + 1), out_features, 1,
+                               dtype=dtype)
 
     def forward(self, x):
         h, w = x.shape[2:]
@@ -121,15 +131,17 @@ class PSPUpsample(nn.Module):
     """x2 bilinear upsample + 3x3 conv + BN + PReLU, held as the
     reference's ``conv`` Sequential (children 0..3)."""
 
-    def __init__(self, c_in: int, c_out: int):
+    def __init__(self, c_in: int, c_out: int,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv = nn.Sequential(Upsample2x(), Conv(c_in, c_out, 3, 1, 1),
-                                  BatchNorm(c_out, channel_dim=1), PReLU())
+        self.conv = nn.Sequential(
+            Upsample2x(), Conv(c_in, c_out, 3, 1, 1, dtype=dtype),
+            BatchNorm(c_out, channel_dim=1, dtype=dtype), PReLU())
 
     def forward(self, x):
         return self.conv(x)
 
 
-def final_layer() -> nn.Sequential:
+def final_layer(dtype: torch.dtype | None = None) -> nn.Sequential:
     """``cnn.final``: Conv2d(64, 64, 1) + channel log-softmax."""
-    return nn.Sequential(Conv(64, 64, 1), ChannelLogSoftmax())
+    return nn.Sequential(Conv(64, 64, 1, dtype=dtype), ChannelLogSoftmax())

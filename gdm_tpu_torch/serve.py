@@ -10,9 +10,12 @@ holds the model that ``config.model.backbone`` names
 SplineCNN graph, or DGCNN's node features in metres) and its mesh
 features, encoded once at construction.
 
-The configuration computes in f32.  cuDNN allows TF32 convolutions by
-default, so the engine turns TF32 off for matmuls and convolutions around
-its own device work (:func:`full_f32`) whatever the caller has set.
+The configuration computes in f32, or its encoder in bf16
+(``model.compute_dtype``).  cuDNN allows TF32 convolutions by default,
+and cuBLAS may reduce bf16 products' partial sums in bf16, so the engine
+turns both off around its own device work (:func:`full_f32`) whatever the
+caller has set: f32 products stay f32, and bf16 ones accumulate in f32,
+as the JAX package's do.
 
 A serving artifact (``cli export-serving``) is a directory that
 :func:`load_artifact` turns back into a PoseEngine with no dataset tree:
@@ -58,17 +61,21 @@ FORMAT_VERSION = 2
 
 @contextlib.contextmanager
 def full_f32():
-    """TF32 off for CUDA matmuls and cuDNN convolutions inside the block;
-    the previous process-wide settings come back after it."""
-    mm = torch.backends.cuda.matmul.allow_tf32
-    cd = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """TF32 off for CUDA matmuls and cuDNN convolutions, and bf16 matmuls'
+    reduced-precision reduction off, inside the block; the previous
+    process-wide settings come back after it."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    mm, cd = matmul.allow_tf32, cudnn.allow_tf32
+    bf = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = mm
-        torch.backends.cudnn.allow_tf32 = cd
+        matmul.allow_tf32 = mm
+        cudnn.allow_tf32 = cd
+        matmul.allow_bf16_reduced_precision_reduction = bf
 
 
 def raw_input_spec(batch: int, im_size: int, n_sample: int,

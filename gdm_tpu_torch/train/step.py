@@ -17,8 +17,12 @@ train_lm.py:266-290).  One call of ``train_step(state, batch, mesh, rng)``:
      a resumed run draws the same masks;
   3. backward, then the Adam(W) update of train/state.py.
 
-TF32 stays off for matmuls and convolutions inside the step.  The
-metrics stay on the device (``loss``, ``seg_loss``, ``match_loss``,
+TF32 stays off for matmuls and convolutions inside the step, and bf16
+products accumulate in f32 (serve.full_f32).  Under
+``model.compute_dtype=bfloat16`` the forward and backward run the
+encoder in bf16 while the parameters, their gradients and the optimizer
+stay f32, with no loss scaling, as in the JAX package.  The metrics stay
+on the device (``loss``, ``seg_loss``, ``match_loss``,
 ``bn_momentum`` and, with the non-finite guard, ``total_notfinite``): the
 caller reads them when it logs.
 """
