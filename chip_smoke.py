@@ -173,10 +173,45 @@ Phases, in order; any failure exits non-zero and prints no result line:
    batch fitted is held against the plain argmax (the traced runs' after
    the trace).
 
+12. Parallel (after bf16, before YCB-V; ``torch.cuda.device_count()``
+   is printed at the start): two ranks spawned on card 0 over gloo,
+   each making the process group itself and then calling
+   ``cli.main(... --device cuda:0 --multihost)``: ``cli train`` b=4 (2
+   rows per rank, one epoch of 8 JPEG frames, rank 1 given its own
+   --ckpt-root, dropout off), ``--resume`` to 2 epochs on both from rank
+   0's checkpoints, ``cli eval`` of it at b=4 (the gathered evaluator),
+   ``cli train --model-shards 2`` b=4 and ``cli eval --model-shards 2``
+   b=32 on the eval tree (2048 mesh columns per rank).  Every similarity
+   launch of the ranks is held against the plain argmax of its own
+   inputs (a column shard's), every merged sharded argmax against the
+   unsharded kernel over all 4096 columns (equal beyond near-ties,
+   |dscore| <= 1e-5; that launch is not counted), rank 0 alone must
+   have written checkpoints and metrics, and each run's first loss must
+   lie within 1e-4 of one process's step on the same rows (its seg and
+   matching losses printed beside that process's own spread under
+   swapped rows).  Per rank: step ms, samples/s, peak memory, the
+   sharded argmax's and the shard kernel's synchronised ms, the host
+   gather's ms, per-batch device ms; the shard's launch alone at its
+   shape beside its bound.  With two or more cards, the same runs and
+   checks over NCCL on min(cards, 4) ranks, one card each (a 4 x 1 and a
+   2 x 2 grid on four), then ``cli train --devices 2`` through the CLI's
+   own spawn held against the same command run as two ``--multihost``
+   NCCL ranks spawned here (dropout on and torch's TF32 defaults in both,
+   as a user runs it): the first logged losses within DEVICES_TOL (equal
+   but for rounding), the checkpoints' difference printed.  Last, the
+   port's dry runs (``gdm_tpu_torch.dryrun``) on min(cards, 4) cards over
+   NCCL (one card: the data-parallel stage on one rank).  A failed check
+   or rank fails the run.
+
+``python3 chip_smoke.py parallel`` runs the setup and this phase alone
+(on a host with four cards: its NCCL runs on four ranks), then prints
+the last line.
+
 Output: per-request latency lines, then one JSON line with the kernels
 (``launches_serve`` the CLI-served batches, ``launches_profile`` the
-traced eval's, ``launches_bf16`` the bf16 phase's), the card's name and
-power limit, and the last line
+traced eval's, ``launches_bf16`` the bf16 phase's, ``launches_parallel``
+the parallel phase's ranks'), the card's name and power limit, and the
+last line
 {"ok": true, "device": {...}}.  Nothing of JAX or of the JAX package is imported: the
 script blocks ``jax``, ``flax`` and ``gdm_tpu`` before any import, so
 only ``gdm_tpu_torch`` runs.
@@ -3282,7 +3317,546 @@ def ycbv_phase(sim, workdir):
     return launches, n_vsd
 
 
-def main() -> int:
+PAR_TRAIN_FRAMES, PAR_VAL_FRAMES = 8, 8
+PAR_BATCH = 4            # global: 2 rows per data rank, 2 steps an epoch
+PAR_EVAL_BATCH = 32      # the sharded eval's (both ranks run its rows)
+PAR_LOSS_TOL = 1e-4      # |two ranks - one rank| / |one rank|, first loss
+DEVICES_TOL = 1e-6       # cli --devices 2 against --multihost, first losses
+
+
+class ShardChecks:
+    """In a rank of the parallel phase: every similarity launch held
+    against the plain argmax of its own inputs (a column shard's, under
+    model shards), every merged sharded argmax against the unsharded
+    kernel over all columns (that launch is not counted), and the times
+    of the launches, of the sharded argmax calls and of the host gathers
+    (all synchronised)."""
+
+    def __init__(self, sim, rank):
+        from gdm_tpu_torch.eval import infer as infer_mod
+        from gdm_tpu_torch.parallel import mesh as pmesh
+
+        self.sim, self.rank = sim, rank
+        self.orig_launch = sim._launch
+        self.orig_sharded = infer_mod.sharded_cosine_argmax
+        self.orig_gather = pmesh.all_gather_host
+        self.comparing = False
+        self.start("")
+        sim._launch = self.launch
+        infer_mod.sharded_cosine_argmax = self.sharded
+        pmesh.all_gather_host = self.gather
+
+    def start(self, tag):
+        self.tag = tag
+        self.stats = {"checked": 0, "max_abs_err": 0.0, "kernel_ms": [],
+                      "sharded_ms": [], "merged_checked": 0,
+                      "merged_err": 0.0, "gather_ms": [], "shapes": set()}
+
+    def launch(self, scene, mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx, score = self.orig_launch(scene, mesh)
+        torch.cuda.synchronize()
+        if not self.comparing:
+            self.stats["kernel_ms"].append((time.perf_counter() - t0) * 1e3)
+            self.stats["shapes"].add((scene.shape[0], mesh.shape[0],
+                                      scene.shape[1]))
+        what = ("unsharded comparison" if self.comparing else
+                f"launch {self.stats['checked']}")
+        err = check_argmax(f"rank {self.rank} {self.tag} {what}", idx,
+                           score, scene, mesh)
+        if not self.comparing:
+            self.stats["checked"] += 1
+        self.stats["max_abs_err"] = max(self.stats["max_abs_err"], err)
+        return idx, score
+
+    def sharded(self, scene_f, mesh_f, grid):
+        from gdm_tpu_torch.eval.pose_fit import l2_normalise
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx, score = self.orig_sharded(scene_f, mesh_f, grid)
+        torch.cuda.synchronize()
+        self.stats["sharded_ms"].append((time.perf_counter() - t0) * 1e3)
+        # the merged result against the unsharded kernel, all columns
+        c = scene_f.shape[-1]
+        f = l2_normalise(scene_f).reshape(-1, c).contiguous()
+        g = l2_normalise(mesh_f).contiguous()
+        n = self.sim.cosine_argmax.launches
+        self.comparing = True
+        full_idx, full_score = self.sim.cosine_argmax(f, g)
+        self.comparing = False
+        self.sim.cosine_argmax.launches = n
+        err = float((score.reshape(-1) - full_score).abs().max())
+        top2 = torch.topk(f @ g.T, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > GAP
+        bad = int(((idx.reshape(-1) != full_idx) & sure).sum())
+        log(f"  rank {self.rank} {self.tag} merged argmax "
+            f"{self.stats['merged_checked']}: {f.shape[0]} rows over "
+            f"{g.shape[0]} columns split {grid.model_shards} ways, "
+            f"max|dscore| {err:.3g} against the unsharded kernel, index "
+            f"mismatches {bad} of {int(sure.sum())} beyond near-ties")
+        if err > SCORE_TOL or bad:
+            fail(f"rank {self.rank} {self.tag}: merged argmax |dscore| "
+                 f"{err}, {bad} index mismatches")
+        self.stats["merged_checked"] += 1
+        self.stats["merged_err"] = max(self.stats["merged_err"], err)
+        return idx, score
+
+    def gather(self, obj, grid):
+        t0 = time.perf_counter()
+        out = self.orig_gather(obj, grid)
+        self.stats["gather_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def parallel_rank(rank, world, store, backend, runs, out_dir, plain=False):
+    """One rank of the parallel phase (a spawned process): joins the
+    process group itself, then ``cli.main(argv + ['--multihost'])`` for
+    each run ('{rank}' in an argument becomes the rank), TF32 off and
+    dropout off in the train runs (so that the first step compares with
+    one rank's), or, ``plain``, with both as a user's run has them;
+    writes what each run measured to <out_dir>/rank<r>.json."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from gdm_tpu_torch import cli
+    from gdm_tpu_torch.models.layers import Dropout
+    from gdm_tpu_torch.ops import similarity as sim
+
+    if not plain:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    card = rank if backend == "nccl" else 0
+    os.environ["LOCAL_RANK"] = str(card)
+    torch.cuda.set_device(card)
+    dist.init_process_group(backend, init_method="file://" + store,
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=5))
+    checks = ShardChecks(sim, rank)
+    if not plain:
+        Dropout.forward = lambda self, x: x
+    out = {}
+    try:
+        for tag, argv in runs:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sim.cosine_argmax.launches = 0
+            checks.start(tag)
+            t0 = time.perf_counter()
+            res = cli.main([a.replace("{rank}", str(rank)) for a in argv]
+                           + ["--multihost"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = checks.stats
+            out[tag] = {
+                "wall_s": wall, "launches": sim.cosine_argmax.launches,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "timing": None if res is None else res["timing"],
+                **{k: v for k, v in st.items() if k != "shapes"},
+                "shapes": sorted(st["shapes"])}
+            if st["checked"] != sim.cosine_argmax.launches:
+                fail(f"rank {rank} {tag}: {sim.cosine_argmax.launches} "
+                     f"launches, {st['checked']} checked")
+            dist.barrier()
+        with open(osp.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def write_parallel_tree(root):
+    """LM-O object 1: PAR_TRAIN_FRAMES JPEG train_pbr and PAR_VAL_FRAMES
+    test frames at 480x640."""
+    from gdm_tpu_torch.configs import LMO as cfg
+    from gdm_tpu_torch.data.synthetic import make_object, \
+        write_synthetic_bop_root
+
+    fps = make_object(cfg.data.model_pt_num, np.random.RandomState(SEED))
+    write_synthetic_bop_root(root, fps, n_frames=PAR_TRAIN_FRAMES,
+                             subsets=("train_pbr",), im_hw=cfg.data.img_hw,
+                             seed=SEED + 3, obj_id=1)
+    write_synthetic_bop_root(root, fps, n_frames=PAR_VAL_FRAMES,
+                             subsets=("test",), im_hw=cfg.data.img_hw,
+                             seed=SEED + 4, obj_id=1)
+
+
+def one_rank_first_step(root, n_ranks, order):
+    """One process's first train step of ``cli train --batch-size
+    PAR_BATCH`` on the rows that ``n_ranks`` data ranks load at step 0
+    (each rank's loader slice, augmented with the seed plus its rank),
+    concatenated in ``order``: the CLI's model, seeds and schedules,
+    dropout off.  Returns the step's losses."""
+    from gdm_tpu_torch import cli, refdata, weights
+    from gdm_tpu_torch.configs import LMO as cfg
+    from gdm_tpu_torch.data.dataset import PoseDataset
+    from gdm_tpu_torch.data.loader import DataLoader
+    from gdm_tpu_torch.data.ply import load_or_build_fps_mesh
+    from gdm_tpu_torch.models.build import build_model
+    from gdm_tpu_torch.models.layers import Dropout
+    from gdm_tpu_torch.train.schedules import bn_momentum_schedule, \
+        cyclic_lr
+    from gdm_tpu_torch.train.state import create_train_state
+    from gdm_tpu_torch.train.step import make_train_step
+
+    sol = cfg.solver
+    fps = load_or_build_fps_mesh(root, 1, cfg.data.model_pt_num)
+    diameter = refdata.get("lmo").diameters_mm_by_id[1] / 1000.0
+    parts, steps = [], 0
+    for r in range(n_ranks):
+        ds = PoseDataset(cfg, 1, "train", mesh_fps=fps, data_root=root,
+                         rng=np.random.RandomState(SEED + r),
+                         diameter_m=diameter)
+        dl = DataLoader(ds, PAR_BATCH // n_ranks, shuffle=True,
+                        drop_last=True, num_workers=4, seed=SEED, rank=r,
+                        world=n_ranks)
+        dl.set_epoch(0)
+        steps = len(dl)
+        parts.append(next(iter(dl))[0])
+    batch = {k: np.concatenate([parts[r][k] for r in order])
+             for k in parts[0]}
+    model, mesh, _, _ = build_model(cfg, cli._fps_mm(fps), "cuda", awl=True)
+    weights.init_random_(model, torch.Generator().manual_seed(SEED + 1))
+    model.to("cuda")
+    lr = cyclic_lr(sol.base_lr, sol.max_lr, max(steps // sol.clr_div, 1))
+    state = create_train_state(model, lr, sol.weight_decay,
+                               sol.skip_nonfinite)
+    step = make_train_step(
+        bn_momentum_schedule(sol.bn_momentum, sol.bn_decay,
+                             sol.bn_decay_step, PAR_BATCH,
+                             sol.bn_momentum_clip),
+        cfg.model.neighbor_dis_th * diameter)
+    forward = Dropout.forward
+    Dropout.forward = lambda self, x: x
+    try:
+        m = step(state, batch, mesh, SEED + 8)
+    finally:
+        Dropout.forward = forward
+    return {k: float(m[k]) for k in ("loss", "seg_loss", "match_loss")}
+
+
+def first_logged_step(ckpt_root):
+    rows = [json.loads(line) for line in open(
+        osp.join(ckpt_root, "metrics", "ape.jsonl"))]
+    return next(r for r in rows if r.get("it") == 0 and "loss" in r)
+
+
+def hold_first_step(tag, ckpt_root, root, n_ranks):
+    """The logged first step of a multi-rank run against one process's
+    step on the same rows: the loss within PAR_LOSS_TOL; the seg and
+    matching losses printed beside the spread of the one-process step
+    itself when the data ranks' rows are swapped (its batch norms then
+    sum in another order)."""
+    got = first_logged_step(ckpt_root)
+    ref = one_rank_first_step(root, n_ranks, range(n_ranks))
+    swapped = (one_rank_first_step(root, n_ranks, range(n_ranks)[::-1])
+               if n_ranks > 1 else ref)
+    for k, want in ref.items():
+        rel_d = abs(got[k] - want) / abs(want)
+        spread = abs(swapped[k] - want) / abs(want)
+        log(f"  {tag} first step {k}: {got[k]:.6f} against one process's "
+            f"{want:.6f} on the same rows (relative {rel_d:.3g}; the one "
+            f"process's own spread under swapped rows {spread:.3g})")
+        if not np.isfinite(got[k]):
+            fail(f"{tag}: {k} {got[k]}")
+    rel_d = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    if rel_d > PAR_LOSS_TOL:
+        fail(f"{tag}: first loss {got['loss']} against one process's "
+             f"{ref['loss']} (relative {rel_d:.3g} > {PAR_LOSS_TOL})")
+    return rel_d
+
+
+def spawn_ranks(world, backend, runs, out_dir, plain=False):
+    """``runs`` on ``world`` spawned parallel_rank processes; returns what
+    each rank wrote."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(parallel_rank, args=(
+            world, osp.join(d, "store"), backend, runs, out_dir, plain),
+            nprocs=world, start_method="spawn")
+    ranks = []
+    for r in range(world):
+        with open(osp.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def parallel_runs(backend, world, root, eval_root, ckpt, base):
+    """The parallel phase's runs on ``world`` ranks over ``backend``
+    (gloo: all on card 0; nccl: rank r on card r), spawned here, each
+    joining the group itself (parallel_rank), and their checks.  Returns
+    (launches, first-step relative differences, the ranks' results)."""
+    shards = 2
+    n_data, n_data_sp = world, world // shards
+    device = "cuda:0" if backend == "gloo" else "cuda"
+    train = ["train", "--dataset", "lmo", "--data-root", root, "--cls-id",
+             "1", "--batch-size", str(PAR_BATCH), "--num-workers", "4",
+             "--opt", "solver.checkpoint_every_epochs=1", "--device",
+             device]
+    r0 = osp.join(base, "r0")
+    runs = [
+        ("train", train + ["--epochs", "1", "--ckpt-root",
+                           osp.join(base, "r{rank}")]),
+        ("resume", train + ["--epochs", "2", "--resume", "--ckpt-root",
+                            r0]),
+        ("eval", ["eval", "--dataset", "lmo", "--data-root", root,
+                  "--torch-checkpoint", osp.join(r0, "checkpoints"),
+                  "--cls-id", "1", "--exact-knn", "--batch-size",
+                  str(PAR_BATCH), "--output-dir", osp.join(base, "eval"),
+                  "--device", device]),
+        ("train_sharded", train + ["--epochs", "1", "--ckpt-root",
+                                   osp.join(base, "s"), "--model-shards",
+                                   str(shards)]),
+        ("eval_sharded", ["eval", "--dataset", "lmo", "--data-root",
+                          eval_root, "--torch-checkpoint", ckpt,
+                          "--cls-id", "1", "--exact-knn", "--batch-size",
+                          str(PAR_EVAL_BATCH), "--output-dir",
+                          osp.join(base, "eval_sharded"), "--device",
+                          device, "--model-shards", str(shards)])]
+    out_dir = osp.join(base, "out")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    log(f"  backend {backend}: {world} ranks on "
+        + ("cuda:0" if backend == "gloo" else f"cuda:0..{world - 1}")
+        + " (spawned; each joins the group through a file store, then "
+        "cli.main(... --multihost))")
+    ranks = spawn_ranks(world, backend, runs, out_dir)
+    log(f"  the {world} ranks ran in {time.perf_counter() - t0:.2f} s "
+        "(start-up included)")
+
+    # files: rank 0 alone writes; the resume continued rank 0's
+    ck = sorted(os.listdir(osp.join(r0, "checkpoints", "ape")))
+    others = [r for r in range(1, world)
+              if osp.exists(osp.join(base, f"r{r}"))]
+    if others or "epoch_0001" not in ck:
+        fail(f"{backend}: ranks {others} wrote a --ckpt-root, or the resume "
+             f"wrote no epoch 1: {ck}")
+    log(f"  rank 0 alone wrote checkpoints ({ck}) and metrics; the other "
+        "ranks' --ckpt-root stay empty")
+    for r in ranks:
+        if {t["epoch"] for t in r["resume"]["timing"]} != {1}:
+            fail("the resume did not continue from epoch 0 on every rank")
+    eval_rows = read_csv_poses(osp.join(base, "eval", "gt_lmo-test.csv"))
+    sharded_rows = read_csv_poses(osp.join(base, "eval_sharded",
+                                           "gt_lmo-test.csv"))
+    if len(eval_rows) != PAR_VAL_FRAMES or len(sharded_rows) != EVAL_FRAMES:
+        fail(f"gathered eval rows {len(eval_rows)}, sharded "
+             f"{len(sharded_rows)}")
+    for p in sharded_rows.values():
+        if not np.isfinite(p).all():
+            fail("sharded eval: a non-finite pose")
+    log(f"  gathered evaluator: {len(eval_rows)} CSV rows (rank 0); sharded "
+        f"eval: {len(sharded_rows)} rows")
+    rel = [hold_first_step(f"{backend} data-parallel train", r0, root,
+                           n_data),
+           hold_first_step(f"{backend} model-sharded train",
+                           osp.join(base, "s"), root, n_data_sp)]
+
+    # per rank: launches, checks, times, memory
+    launches = 0
+    for tag, n_rows in (("train", n_data), ("resume", n_data),
+                        ("train_sharded", n_data_sp)):
+        rows = PAR_BATCH * len(ranks[0][tag]["timing"])
+        wall = max(res[tag]["wall_s"] for res in ranks)
+        log(f"  {tag}: {rows} samples over {world} ranks ({n_rows} data "
+            f"ranks) in {wall:.2f} s, {rows / wall:.2f} samples/s in all end "
+            "to end (model set-up included)")
+    for r, res in enumerate(ranks):
+        for tag, st in res.items():
+            launches += st["launches"]
+            steps = [t for t in (st["timing"] or []) if "step_ms" in t]
+            line = (f"  rank {r} {tag}: {st['wall_s']:.2f} s, peak "
+                    f"{st['peak_gib']:.2f} GiB, launches {st['launches']} "
+                    f"(all held against the plain argmax of their inputs, "
+                    f"max|dscore| {st['max_abs_err']:.3g})")
+            if steps:
+                ms = np.array([t["step_ms"] for t in steps])
+                rows = PAR_BATCH // (n_data_sp if "sharded" in tag
+                                     else n_data)
+                line += (f"; {len(steps)} steps, step ms {ms.round(2)}, "
+                         f"{len(steps) * rows / st['wall_s']:.2f} samples/s "
+                         f"this rank end to end")
+            if st["sharded_ms"]:
+                kern = np.median(st["kernel_ms"])
+                shd = np.median(st["sharded_ms"])
+                line += (f"; sharded argmax median {shd:.3f} ms of which the "
+                         f"shard's kernel {kern:.3f} ms (merge, normalise "
+                         f"and slice {shd - kern:.3f} ms) at "
+                         f"{st['shapes']}; merged results checked "
+                         f"{st['merged_checked']}, max|dscore| "
+                         f"{st['merged_err']:.3g}")
+            if st["gather_ms"]:
+                line += f"; host gather {np.round(st['gather_ms'], 2)} ms"
+            if tag.startswith("eval") and st["timing"]:
+                dev = [t["device_ms"] for t in st["timing"]]
+                line += (f"; per-batch device ms {np.round(dev, 2)}")
+            log(line)
+        if res["eval_sharded"]["launches"] != \
+                res["eval_sharded"]["merged_checked"]:
+            fail(f"rank {r}: sharded eval launches "
+                 f"{res['eval_sharded']['launches']}, merged checks "
+                 f"{res['eval_sharded']['merged_checked']}")
+        for tag in ("eval", "eval_sharded"):
+            if res[tag]["launches"] == 0:
+                fail(f"rank {r} {tag}: no similarity launch")
+    return launches, rel, ranks
+
+
+def cli_devices_check(root, workdir):
+    """``cli train --devices 2`` through the CLI's own spawn (NCCL, cuda:0
+    and cuda:1), run as a user runs it (dropout on, torch's TF32
+    defaults), against the same command as two ``--multihost`` ranks
+    spawned here with the same seeds (parallel_rank, ``plain``): the
+    ranks draw the same dropout masks and augmentations, so the first
+    logged losses must agree within DEVICES_TOL (the runs before it hold
+    the --multihost ranks against one process).  Also held: the parent
+    returns no result and rank 0 alone wrote the checkpoint and metrics.
+    The two checkpoints' largest parameter difference is printed (the
+    backward's atomics may round differently).  Returns the largest
+    relative first-loss difference."""
+    from gdm_tpu_torch import cli
+    from gdm_tpu_torch.train.checkpoint import checkpoint_file
+
+    def argv(ckpt_root):
+        return ["train", "--dataset", "lmo", "--data-root", root,
+                "--cls-id", "1", "--batch-size", str(PAR_BATCH), "--epochs",
+                "1", "--ckpt-root", ckpt_root, "--num-workers", "4"]
+
+    devices = osp.join(workdir, "devices_train")
+    t0 = time.perf_counter()
+    if cli.main(argv(devices) + ["--devices", "2"]) is not None:
+        fail("cli train --devices 2 returned a result in the parent")
+    t_dev = time.perf_counter() - t0
+    out_dir = osp.join(workdir, "devices_ref_out")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    spawn_ranks(2, "nccl", [("train", argv(osp.join(workdir,
+                                                    "devices_ref{rank}")))],
+                out_dir, plain=True)
+    t_ref = time.perf_counter() - t0
+    ref_root = osp.join(workdir, "devices_ref0")
+    if osp.exists(osp.join(workdir, "devices_ref1")):
+        fail("--multihost rank 1 wrote a --ckpt-root")
+    got, want = first_logged_step(devices), first_logged_step(ref_root)
+    worst = 0.0
+    for k in ("loss", "seg_loss", "match_loss"):
+        if not np.isfinite(got[k]):
+            fail(f"cli train --devices 2: {k} {got[k]}")
+        d = abs(got[k] - want[k]) / abs(want[k])
+        worst = max(worst, d)
+        log(f"  cli train --devices 2 first {k} {got[k]!r} against "
+            f"--multihost's {want[k]!r} (relative {d:.3g})")
+    if worst > DEVICES_TOL:
+        fail(f"cli train --devices 2: first losses {worst:.3g} off the "
+             f"--multihost ranks' (> {DEVICES_TOL})")
+    blobs = [torch.load(checkpoint_file(osp.join(r, "checkpoints", "ape")),
+                        weights_only=True, map_location="cpu")
+             for r in (devices, ref_root)]
+    if blobs[0]["step"] != blobs[1]["step"]:
+        fail(f"steps {blobs[0]['step']} and {blobs[1]['step']}")
+    diff = max(float((v.double() - blobs[1]["model_state"][k].double())
+                     .abs().max())
+               for k, v in blobs[0]["model_state"].items()
+               if v.is_floating_point())
+    log(f"  cli train --devices 2 (NCCL, spawned by the CLI) in {t_dev:.2f} "
+        f"s, the --multihost ranks in {t_ref:.2f} s: {blobs[0]['step']} "
+        f"steps each, checkpoints' largest |dparameter| {diff:.3g}")
+    return worst
+
+
+def run_dryrun(n_cards):
+    """``gdm_tpu_torch.dryrun`` on min(cards, 4) cards over NCCL."""
+    from gdm_tpu_torch import dryrun
+
+    n = min(n_cards, 4)
+    t0 = time.perf_counter()
+    dryrun.dryrun(n, "cuda")
+    log(f"  dryrun on {n} card(s) over NCCL in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return n
+
+
+def parallel_phase(sim, eval_dir, workdir, smi):
+    """The runs of parallel_runs on two gloo ranks sharing card 0, then,
+    with two or more cards, on min(cards, 4) NCCL ranks and cli train
+    --devices 2; the dry runs; the sharded launch alone timed at its
+    shape beside its bound.  Returns (launches, kernel-line fields)."""
+    import gc
+
+    from gdm_tpu_torch.data.ply import load_or_build_fps_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()        # the ranks share card 0 with this one
+    log(f"  this process holds {torch.cuda.memory_reserved() / 2 ** 30:.2f} "
+        "GiB of card 0")
+    root = osp.join(workdir, "lmo_par")
+    t0 = time.perf_counter()
+    write_parallel_tree(root)
+    load_or_build_fps_mesh(root, 1, 4096)      # once, before the ranks
+    log(f"  tree ({PAR_TRAIN_FRAMES} JPEG train_pbr + {PAR_VAL_FRAMES} test "
+        f"frames) written in {time.perf_counter() - t0:.2f} s")
+    eval_root, ckpt = osp.join(eval_dir, "lmo"), osp.join(eval_dir, "ckpt")
+    launches, rel, _ = parallel_runs("gloo", 2, root, eval_root, ckpt,
+                                     osp.join(workdir, "gloo"))
+    out = {"first_step_rel": rel}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        world = min(n_cards, 4)
+        n, rel, _ = parallel_runs("nccl", world, root, eval_root, ckpt,
+                                  osp.join(workdir, "nccl"))
+        launches += n
+        out["nccl"] = {"ranks": world, "first_step_rel": rel,
+                       "cli_devices_rel": cli_devices_check(root, workdir)}
+    else:
+        log(f"  {n_cards} card: the NCCL runs need two and did not run")
+    out["dryrun_cards"] = run_dryrun(n_cards)
+
+    # the sharded launch alone, at its shape, beside the bound
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    r, m, c = PAR_EVAL_BATCH * 4096, 2048, 128
+    peaks = (peak_flops(1024, "dense TF32"), peak_flops())
+    scene, mesh = unit_rows(r, c, g), unit_rows(m, c, g)
+    n = sim.cosine_argmax.launches
+    ms = median_ms(sim.cosine_argmax, scene, mesh, reps=10)
+    plain_ms = median_ms(sim.cosine_argmax_reference, scene, mesh, reps=10)
+    sim.cosine_argmax.launches = n
+    bms, by, _ = bound_ms((r, m, c), *peaks)
+    log(f"  sharded launch shape [{r},{c}]x[{m},{c}]: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"{100 * bms / ms:.1f}% of it ({smi})")
+    return launches, dict(out, shard_shape=[r, m, c], shard_ms=ms,
+                          shard_plain_ms=plain_ms, shard_bound_ms=bms)
+
+
+def ok_line():
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def parallel_alone(sim, smi_line):
+    """``python3 chip_smoke.py parallel``: the eval tree, then the parallel
+    phase alone (with four cards, its NCCL runs on four ranks)."""
+    log("parallel phase")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as eval_dir, \
+            tempfile.TemporaryDirectory() as workdir:
+        write_eval_tree(eval_dir)
+        launches, par = parallel_phase(sim, eval_dir, workdir, smi_line)
+    log(f"  phase wall time {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"parallel": dict(par, launches=launches)}))
+    log(smi_line)
+    ok_line()
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["parallel"]):
+        print("usage: python3 chip_smoke.py [parallel]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -3294,6 +3868,7 @@ def main() -> int:
     smi_line = smi.splitlines()[0]
     log(smi_line)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"torch.cuda.device_count() = {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch.backends.cuda.matmul.allow_tf32 = "
@@ -3322,6 +3897,8 @@ def main() -> int:
         t_phase[0] = now
         log(f"{name} phase")
 
+    if argv == ["parallel"]:
+        return parallel_alone(sim, smi_line)
     log("kernel phase")
     err, at, n_hgmma = kernel_phase(sim)
     phase("serving")
@@ -3352,6 +3929,10 @@ def main() -> int:
             "eval_timing": eval_timing, "eval_peak": eval_peak,
             "kernels": f32_kernels, "train_fixed": train_res["fixed"],
             "dgcnn_timing": dgcnn_timing})
+        phase("parallel")
+        with tempfile.TemporaryDirectory() as workdir:
+            launches_parallel, par = parallel_phase(sim, eval_dir, workdir,
+                                                    smi_line)
     phase("ycbv")
     with tempfile.TemporaryDirectory() as workdir:
         launches_ycbv, ycbv_stamped = ycbv_phase(sim, workdir)
@@ -3369,7 +3950,8 @@ def main() -> int:
         "launches": (launches_eval + launches_serve + launches_train
                      + launches_refine + launches_stacked
                      + launches_vsd["cosine_argmax"] + launches_ycbv
-                     + launches_dgcnn + launches_profile + launches_bf16),
+                     + launches_dgcnn + launches_profile + launches_bf16
+                     + launches_parallel),
         "launches_eval": launches_eval,
         "launches_serve": launches_serve,
         "launches_profile": launches_profile,
@@ -3380,6 +3962,7 @@ def main() -> int:
         "launches_ycbv": launches_ycbv,
         "launches_dgcnn": launches_dgcnn,
         "launches_bf16": launches_bf16,
+        "launches_parallel": launches_parallel,
         "max_abs_err": err,
         "ms": at["eval"]["ms"],
         "plain_ms": at["eval"]["plain_ms"],
@@ -3393,6 +3976,7 @@ def main() -> int:
         "shape": list(EVAL_SHAPE),
         "serve": dict(at["serve"], shape=list(SERVE_SHAPE)),
         "train_val": dict(at["train_val"], shape=list(TRAIN_VAL_SHAPE)),
+        "parallel": par,
     }] + [dict({
         "name": name,
         "route": "cuda",
@@ -3408,9 +3992,7 @@ def main() -> int:
         # what eval/vsd renders with
         ("render_depth_scatter", "gdm_tpu/ops/render_depth.py:96"))]}))
     log(smi_line)
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+    ok_line()
     return 0
 
 

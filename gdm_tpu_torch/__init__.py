@@ -18,4 +18,10 @@ counterpart module by module and imports ``torch``, never ``jax`` or
     configs         the served shapes and widths (LMO preset)
     weights         loads the reference-named state dict that
                     gdm_tpu.train.import_torch.export_state_dict emits
+
+Later slices added the CLI (cli: eval, infer, score, train,
+export-serving, serve), training (losses/, train/), refinement, stacked
+inference, VSD, YCB-V, DGCNN, bf16, and several ranks over
+torch.distributed (parallel/: the (data, model) grid, the sharded
+argmax and matching loss; dryrun).
 """

@@ -73,10 +73,35 @@ mesh of ``data.model_pt_num`` vertices.  With ``data.fill_depth``
 counts.
 
 The KNN pyramid and the DGCNN graphs are exact: it is the port's only
-mode.  What the JAX CLI offers and the port does not yet
-(``--model-shards`` > 1, ``--multihost`` and ``--devices`` > 1) raises,
-naming the ROADMAP queue 1 item that brings it; ``infer --stacked`` needs
-the randla_spline backbone, as in the JAX CLI.
+mode.  ``infer --stacked`` needs the randla_spline backbone, as in the
+JAX CLI.
+
+Several cards (``train``, ``eval``, ``infer``; parallel/): one process
+per card over NCCL, or per CPU rank over gloo with ``--device cpu``.
+
+  * ``--devices N`` starts N ranks on this host (``torch.multiprocessing``,
+    cards cuda:0..N-1) and refuses an N beyond the cards present (the CPU's
+    cores with ``--device cpu``).  The default is one card, where the JAX
+    CLI takes every device of its platform;
+  * ``--multihost``: this process is one rank of a torchrun-style run
+    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT; its card is
+    cuda:$LOCAL_RANK), or of the process group its caller already made;
+  * ``--model-shards S`` lays the ranks out as a (world / S, S) grid,
+    rank = d S + k (gdm_tpu/parallel/sp.py make_mesh_2d): the S ranks of
+    a model row split the mesh columns of the matching loss and of the
+    correspondence argmax (parallel/sp.py), the ranks of a data column
+    split the batch.
+
+Each rank loads only its rows of every batch (the loader's
+``rank``/``world`` slice over the data column; ``--batch-size`` is the
+global batch), ``train`` augments with the seed plus the data rank (the
+JAX multi-process run's seed plus rank), takes the global batch's losses
+and batch-norm moments and the ranks' mean gradient, and rank 0 alone
+writes checkpoints and the metrics stream and validates
+(``--eval-every``) on its card.  ``eval`` and ``infer`` gather the
+predictions to rank 0, which writes the CSV and the table.  ``score``
+and ``export-serving`` take ``--devices`` and ``--multihost`` and, as in
+the JAX CLI, run in one process; ``infer --stacked`` is single-process.
 """
 
 from __future__ import annotations
@@ -98,12 +123,6 @@ KNN_BLOCK_ELEMS = 1 << 30
 VIZ_KEYS = ("rgb_u8", "K_crop", "RT")
 # the profiler range (--profile-dir) of each timed engine batch
 BATCH_SPAN = "gdm_tpu_torch.batch"
-
-_NOT_PORTED = {
-    "model_shards": "mesh-column sharding (ROADMAP queue 1 item 10)",
-    "multihost": "multi-process training (ROADMAP queue 1 item 9)",
-}
-
 
 def get_logger(name: str) -> logging.Logger:
     logger = logging.getLogger(f"gdm_tpu_torch.{name}")
@@ -127,16 +146,99 @@ def _device(args):
     return dev
 
 
-def _refuse_unported(args, log):
-    for flag, what in _NOT_PORTED.items():
-        val = getattr(args, flag, None)
-        if val and not (flag == "model_shards" and val == 1):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: {what} is not ported")
-    if getattr(args, "devices", None) not in (None, 1):
-        raise NotImplementedError(
-            "--devices > 1: data-parallel training (ROADMAP queue 1 item "
-            "9) is not ported")
+def _run_grid(args, batch_size: int | None = None):
+    """(grid, device) of this process (gdm_tpu/cli.py _make_run_mesh):
+    one rank on ``--device``, or under ``--multihost`` a rank of the
+    process group on its card, laid out as a (data, model) grid of
+    ``--model-shards`` columns; refuses the layouts the JAX CLI refuses,
+    with its messages."""
+    import torch.distributed as dist
+
+    from gdm_tpu_torch.parallel import mesh as pmesh
+
+    device = _device(args)
+    world = 1
+    if args.multihost:
+        if (args.devices or 1) != 1:
+            raise SystemExit(f"--devices {args.devices} out of range "
+                             "(1..1 per process)")
+        device = pmesh.rank_device(device)
+        pmesh.init_process_group(device)
+        world = dist.get_world_size()
+    shards = getattr(args, "model_shards", 1) or 1
+    _check_layout(world, shards, batch_size)
+    grid = pmesh.make_grid(shards) if args.multihost else pmesh.Grid()
+    return grid, device
+
+
+def _check_layout(world: int, shards: int, batch_size: int | None):
+    """The grid checks of gdm_tpu/cli.py _make_run_mesh, its messages."""
+    if world % shards:
+        raise SystemExit(f"--model-shards {shards} does not divide "
+                         f"{world} devices")
+    n_data = world // shards
+    if batch_size is not None and batch_size % n_data:
+        raise SystemExit(
+            f"batch {batch_size} not divisible by the data-axis size "
+            f"{n_data}" + (f" ({world} devices / {shards} model shards)"
+                           if shards > 1 else ""))
+
+
+def _check_stacked(args):
+    """``infer --stacked`` refusals of the JAX CLI (gdm_tpu/cli.py
+    _infer_stacked)."""
+    if not getattr(args, "stacked", False):
+        return
+    if args.multihost or (args.devices or 1) > 1:
+        raise SystemExit("--stacked is single-process (use the default "
+                         "per-object loop for multihost runs)")
+    if args.model_shards > 1:
+        raise SystemExit("--stacked and --model-shards are exclusive")
+
+
+def _spawn_ranks(argv, n: int, device) -> None:
+    """``--devices N``: N ranks of this command on this host, rank r on
+    cuda:r (NCCL) or a CPU rank (gloo), meeting through a file store in a
+    temporary directory.  A rank that fails fails the run (the others
+    are ended)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        if device.index is not None:
+            raise SystemExit(f"--devices {n} takes cuda:0..{n - 1}; pass "
+                             "--device cuda")
+        avail = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+    else:
+        avail = os.cpu_count() or 1
+    if not 1 <= n <= avail:
+        raise SystemExit(f"--devices {n} out of range (1..{avail} per "
+                         "process)")
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(_rank_main, args=(list(argv), n,
+                                             osp.join(d, "store"), backend),
+                           nprocs=n, start_method="spawn")
+
+
+def _rank_main(rank: int, argv, world: int, store: str, backend: str):
+    """One rank of :func:`_spawn_ranks`: the command with --multihost in
+    the process group of the file store."""
+    import torch.distributed as dist
+
+    from gdm_tpu_torch.parallel.mesh import TIMEOUT
+
+    os.environ["LOCAL_RANK"] = str(rank)    # its card (torchrun layout)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world, timeout=TIMEOUT)
+    try:
+        main(list(argv) + ["--devices", "1", "--multihost"])
+    finally:
+        dist.destroy_process_group()
 
 
 def _log_exact_knn(args, cfg, log):
@@ -296,10 +398,11 @@ def _fps_mm(mesh_fps):
 
 
 def _object_engine(cfg, args, obj_name, mesh_fps, device, batch, log,
-                   icp_reject=0.01):
+                   icp_reject=0.01, grid=None):
     """The PoseEngine of one object: its reference checkpoint, its mesh
-    (``mesh_fps`` in metres), the eval batch, --refine and the object's
-    ICP gate."""
+    (``mesh_fps`` in metres), the eval batch, --refine, the object's ICP
+    gate and the run's grid (its correspondence argmax split over the
+    model row)."""
     from gdm_tpu_torch import weights
     from gdm_tpu_torch.serve import PoseEngine
 
@@ -308,12 +411,14 @@ def _object_engine(cfg, args, obj_name, mesh_fps, device, batch, log,
     return PoseEngine(cfg, _fps_mm(mesh_fps), state, device, batch=batch,
                       knn_chunk=knn_chunk_for(args.knn_chunk, batch, cfg,
                                               log),
-                      refine=args.refine, icp_reject=icp_reject)
+                      refine=args.refine, icp_reject=icp_reject, grid=grid)
 
 
-def _run_batches(engine, ds, batch_size, num_workers, timing, keep=()):
+def _run_batches(engine, ds, batch_size, num_workers, timing, keep=(),
+                 rank=0, world=1):
     """Yield (meta row, det, pose [3, 4] float64, seconds per frame) for
-    every sample of ``ds``, in order, through ``engine`` at its batch.
+    every sample of ``ds`` (of its ``rank``::``world`` slice), in order,
+    through ``engine`` at its batch.
     A sample's ``obj_pos`` (the stacked path's) and its arrays named in
     ``keep`` join its meta row.
 
@@ -329,7 +434,8 @@ def _run_batches(engine, ds, batch_size, num_workers, timing, keep=()):
     keys = list(engine.meta["raw_spec"])
     sync = (torch.cuda.synchronize if engine.device.type == "cuda"
             else (lambda: None))
-    it = iter(DataLoader(ds, batch_size, num_workers=num_workers))
+    it = iter(DataLoader(ds, batch_size, num_workers=num_workers,
+                         rank=rank, world=world))
     warm = True
     while True:
         t0 = time.perf_counter()
@@ -395,14 +501,15 @@ def evaluate(args):
     from gdm_tpu_torch import refdata
     from gdm_tpu_torch.data.dataset import PoseDataset
     from gdm_tpu_torch.eval.evaluator import Evaluator
+    from gdm_tpu_torch.parallel.mesh import all_gather_host
 
     log = get_logger("eval")
-    _refuse_unported(args, log)
-    device = _device(args)
     cfg = model_config(args.dataset, args.opt)
     _log_exact_knn(args, cfg, log)
     refd = refdata.get(args.dataset)
     batch_size = args.batch_size or cfg.solver.val_batch_size
+    grid, device = _run_grid(args, batch_size)
+    host_bs = batch_size // grid.data_size      # this rank's rows
     cls_ids = [args.cls_id] if args.cls_id else list(cfg.data.obj_ids)
     targets = _load_targets(args.targets) if args.targets else None
     models_info = _models_info(refd, args.data_root)
@@ -446,17 +553,18 @@ def evaluate(args):
                 sym_transforms=sym_tfs, im_w=cfg.data.img_hw[1],
                 device=device)
         engine = _object_engine(cfg, args, obj_name, mesh_fps, device,
-                                batch_size, log,
-                                _icp_gate(args, cfg, diameter))
+                                host_bs, log, _icp_gate(args, cfg, diameter),
+                                grid)
         n_done = 0
         viz_seen = collections.Counter()     # detections per frame
         for meta, det, pose, dt in _run_batches(
-                engine, ds, batch_size, args.num_workers, timing,
-                keep=VIZ_KEYS if args.save_viz else ()):
+                engine, ds, host_bs, args.num_workers, timing,
+                keep=VIZ_KEYS if args.save_viz else (),
+                rank=grid.data_rank, world=grid.data_size):
             evaluator.add_prediction(obj_name, meta["file_name"],
                                      pose[:, :3], pose[:, 3], time=dt,
                                      det=det)
-            if args.save_viz:
+            if args.save_viz and grid.model_rank == 0:
                 viz_seen[meta["file_name"]] += 1
                 _save_viz(args.save_viz, obj_name, meta["file_name"],
                           meta["rgb_u8"], meta["K_crop"], pts, pose,
@@ -466,6 +574,12 @@ def evaluate(args):
 
     if evaluator is None:
         raise SystemExit("nothing evaluated")
+    if grid.world > 1:
+        # the ranks of a model row computed the same rows: one gives them
+        evaluator.gather(lambda p: all_gather_host(
+            p if grid.model_rank == 0 else {}, grid))
+        if grid.rank != 0:
+            return None
     results = evaluator.evaluate(gts)
     print(results["table"])
     results["timing"] = timing
@@ -526,18 +640,18 @@ def infer(args):
     mixing objects (the stream of a live feed of mixed detections)."""
     from gdm_tpu_torch import refdata
     from gdm_tpu_torch.data.dataset import PoseDataset
+    from gdm_tpu_torch.parallel.mesh import all_gather_host
 
     log = get_logger("infer")
-    if args.stacked and args.model_shards > 1:
-        raise SystemExit("--stacked and --model-shards are exclusive")
-    _refuse_unported(args, log)
-    device = _device(args)
+    _check_stacked(args)
     cfg = model_config(args.dataset, args.opt)
     if args.stacked and cfg.model.backbone != "randla_spline":
         raise SystemExit("--stacked requires the randla_spline backbone")
     _log_exact_knn(args, cfg, log)
     refd = refdata.get(args.dataset)
     batch_size = args.batch_size or cfg.solver.val_batch_size
+    grid, device = _run_grid(args, batch_size)
+    host_bs = batch_size // grid.data_size      # this rank's rows
     cls_ids = [args.cls_id] if args.cls_id else list(cfg.data.obj_ids)
     targets = _load_targets(args.targets) if args.targets else None
 
@@ -556,18 +670,20 @@ def infer(args):
             continue
         mesh_fps = _object_mesh(cfg, cls_id, args.data_root)
         engine = _object_engine(
-            cfg, args, obj_name, mesh_fps, device, batch_size, log,
-            _icp_gate(args, cfg, refd.diameters_mm_by_id[cls_id] / 1000.0))
+            cfg, args, obj_name, mesh_fps, device, host_bs, log,
+            _icp_gate(args, cfg, refd.diameters_mm_by_id[cls_id] / 1000.0),
+            grid)
         if args.stacked:
             parts.append((cls_id, ds, engine))
             continue
         n_done = 0
         viz_seen = collections.Counter()     # detections per frame
         for meta, _, pose, dt in _run_batches(
-                engine, ds, batch_size, args.num_workers, timing,
-                keep=VIZ_KEYS[:2] if args.save_viz else ()):
+                engine, ds, host_bs, args.num_workers, timing,
+                keep=VIZ_KEYS[:2] if args.save_viz else (),
+                rank=grid.data_rank, world=grid.data_size):
             rows.append((meta["file_name"], cls_id, pose, dt))
-            if args.save_viz:
+            if args.save_viz and grid.model_rank == 0:
                 viz_seen[meta["file_name"]] += 1
                 _save_viz(args.save_viz, obj_name, meta["file_name"],
                           meta["rgb_u8"], meta["K_crop"], mesh_fps[:, :3],
@@ -586,6 +702,11 @@ def infer(args):
                          dt))
         log.info("stacked (%s): %d frames of %d objects",
                  args.stacked_schedule, len(rows), len(parts))
+    if grid.world > 1:
+        rows = [r for sub in all_gather_host(
+            rows if grid.model_rank == 0 else [], grid) for r in sub]
+        if grid.rank != 0:
+            return None
     out = _write_infer_csv(rows, args, log)
     out["timing"] = timing
     return out
@@ -605,7 +726,6 @@ def score(args):
     from gdm_tpu_torch.eval.evaluator import Evaluator
 
     log = get_logger("score")
-    _refuse_unported(args, log)
     cfg = get_config(args.dataset, args.opt)
     refd = refdata.get(args.dataset)
     cls_ids = [args.cls_id] if args.cls_id else list(cfg.data.obj_ids)
@@ -762,7 +882,8 @@ class _ValContext:
 
 
 def train(args):
-    """Train one model per object (gdm_tpu/cli.py:481-733) on one device.
+    """Train one model per object (gdm_tpu/cli.py:481-733) on one device,
+    or as one rank of several (``--multihost``; see the module docstring).
 
     Returns {'objects': {name: {'state', 'val'}}, 'timing': per-step
     {'obj', 'epoch', 'it', 'wait_ms', 'step_ms'}}: the host time waiting
@@ -774,6 +895,7 @@ def train(args):
     from gdm_tpu_torch.data.dataset import PoseDataset
     from gdm_tpu_torch.data.loader import DataLoader
     from gdm_tpu_torch.models.build import build_model
+    from gdm_tpu_torch.parallel import mesh as pmesh
     from gdm_tpu_torch.train.checkpoint import load_checkpoint, \
         save_checkpoint
     from gdm_tpu_torch.train.schedules import bn_momentum_schedule, \
@@ -783,14 +905,17 @@ def train(args):
     from gdm_tpu_torch.utils.logging import JsonlLogger
 
     log = get_logger("train")
-    _refuse_unported(args, log)
-    device = _device(args)
     cfg = model_config(args.dataset, args.opt)
     _log_exact_knn(args, cfg, log)
     refd = refdata.get(args.dataset)
     sol = cfg.solver
     epochs = args.epochs or sol.total_epochs
     batch_size = args.batch_size or sol.train_batch_size
+    grid, device = _run_grid(args, batch_size)
+    # the ranks of a model row load the same rows, those of a data
+    # column the interleaved slices of each epoch's order
+    d_rank, n_data = grid.data_rank, grid.data_size
+    rank_bs = batch_size // n_data
     cls_ids = (list(cfg.data.obj_ids) if args.cls_id == "all"
                else [int(args.cls_id)])
     bnm = bn_momentum_schedule(sol.bn_momentum, sol.bn_decay,
@@ -810,10 +935,11 @@ def train(args):
 
         ds = PoseDataset(cfg, cls_id, "train", mesh_fps=mesh_fps,
                          data_root=args.data_root,
-                         rng=np.random.RandomState(args.seed),
+                         rng=np.random.RandomState(args.seed + d_rank),
                          diameter_m=diameter_m)
-        dl = DataLoader(ds, batch_size, shuffle=True, drop_last=True,
+        dl = DataLoader(ds, rank_bs, shuffle=True, drop_last=True,
                         num_workers=args.num_workers, seed=args.seed,
+                        rank=d_rank, world=n_data,
                         workers=args.loader_workers)
         log.info("%d samples, %d steps/epoch", len(ds), len(dl))
         if len(dl) == 0:
@@ -845,11 +971,14 @@ def train(args):
             load_pretrained_backbone(model, pretrained_sd)
             log.info("CNN backbone initialised from %s", pretrained)
         model.to(device)
+        pmesh.attach(model, grid)
+        pmesh.broadcast_module(model, grid)         # rank 0's start
         state = create_train_state(model, lr, sol.weight_decay,
                                    sol.skip_nonfinite)
         positive_r = cfg.model.neighbor_dis_th * diameter_m
         train_step = make_train_step(bnm, positive_r, args.knn_chunk,
-                                     cfg.data.fill_depth, needs_pyramid)
+                                     cfg.data.fill_depth, needs_pyramid,
+                                     grid)
 
         ckpt_dir = osp.join(args.ckpt_root, "checkpoints", obj_name)
         start_epoch = 0
@@ -858,11 +987,14 @@ def train(args):
             if ep is not None:
                 start_epoch = ep + 1
                 log.info("resumed from epoch %d", ep)
+        # rank 0 alone validates (on its card, the whole test split),
+        # writes the metrics stream and the checkpoints
+        lead = grid.rank == 0
         val_ctx = (_ValContext(cfg, refd, cls_id, args, diameter_m,
                                mesh_fps, device, log)
-                   if args.eval_every else None)
-        mlog = JsonlLogger(osp.join(args.ckpt_root, "metrics",
-                                    f"{obj_name}.jsonl"))
+                   if args.eval_every and lead else None)
+        mlog = (JsonlLogger(osp.join(args.ckpt_root, "metrics",
+                                     f"{obj_name}.jsonl")) if lead else None)
         notfinite_seen = 0
         rng = args.seed + 7 + cls_id
         val = None
@@ -900,23 +1032,24 @@ def train(args):
                     if not np.isfinite(m["loss"]):
                         log.warning("non-finite loss at epoch %d it %d",
                                     epoch, it)
-                    mlog.write({
-                        "obj": obj_name, "epoch": epoch, "it": it,
-                        "step": step, "loss": m["loss"],
-                        "seg_loss": m["seg_loss"],
-                        "match_loss": m["match_loss"],
-                        # the update just logged read the schedule at
-                        # step - 1
-                        "lr": float(lr(max(step - 1, 0))),
-                        "bn_momentum": m["bn_momentum"],
-                        "samples_per_sec": round(sps, 2),
-                        "total_notfinite": nf,
-                    })
+                    if mlog is not None:
+                        mlog.write({
+                            "obj": obj_name, "epoch": epoch, "it": it,
+                            "step": step, "loss": m["loss"],
+                            "seg_loss": m["seg_loss"],
+                            "match_loss": m["match_loss"],
+                            # the update just logged read the schedule
+                            # at step - 1
+                            "lr": float(lr(max(step - 1, 0))),
+                            "bn_momentum": m["bn_momentum"],
+                            "samples_per_sec": round(sps, 2),
+                            "total_notfinite": nf,
+                        })
                     t0 = time.perf_counter()
                     it_prev = it + 1
                 it += 1
-            if ((epoch + 1) % sol.checkpoint_every_epochs == 0
-                    or epoch + 1 == epochs):
+            if lead and ((epoch + 1) % sol.checkpoint_every_epochs == 0
+                         or epoch + 1 == epochs):
                 path = save_checkpoint(state, ckpt_dir, epoch)
                 log.info("checkpoint -> %s", path)
             if val_ctx is not None and ((epoch + 1) % args.eval_every == 0
@@ -927,7 +1060,8 @@ def train(args):
                              "(%d frames)", epoch, val["val_add_auc"],
                              val["val_ad_10"], val["val_frames"])
                     mlog.write({"obj": obj_name, "epoch": epoch, **val})
-        mlog.close()
+        if mlog is not None:
+            mlog.close()
         result["objects"][obj_name] = {"state": state, "val": val}
     return result
 
@@ -943,7 +1077,6 @@ def export_serving(args):
     from gdm_tpu_torch.train.checkpoint import checkpoint_file
 
     log = get_logger("export-serving")
-    _refuse_unported(args, log)
     _device(args)
     cfg = model_config(args.dataset, args.opt)
     _log_exact_knn(args, cfg, log)
@@ -1041,14 +1174,20 @@ def build_parser():
         sp.add_argument("--device", default="cuda",
                         help=f"{what} (default cuda; cpu on request)")
 
-    def not_ported(sp, shards=True):
+    def ranks(sp, shards=True):
         sp.add_argument("--devices", type=int, default=None,
-                        help="not ported beyond 1")
+                        help="start N ranks on this host, one per card "
+                             "(NCCL) or CPU rank (gloo); default one")
         sp.add_argument("--multihost", action="store_true",
-                        help="not ported")
+                        help="run as one rank of a torchrun-style run "
+                             "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+                             "MASTER_PORT) or of the caller's process "
+                             "group")
         if shards:
             sp.add_argument("--model-shards", type=int, default=1,
-                            help="not ported beyond 1")
+                            help="split the mesh columns of the matching "
+                                 "loss and the correspondence argmax over "
+                                 "this many ranks (a (data, model) grid)")
 
     def engine(sp):
         sp.add_argument("--batch-size", type=int, default=None,
@@ -1069,7 +1208,7 @@ def build_parser():
     def run(sp):
         common(sp)
         engine(sp)
-        not_ported(sp)
+        ranks(sp)
         sp.add_argument("--num-workers", type=int, default=8,
                         help="loader decode threads")
         sp.add_argument("--torch-checkpoint", required=True,
@@ -1110,7 +1249,7 @@ def build_parser():
                    help="torchvision resnet .pth/.npz: ImageNet init of "
                         "the CNN branch (overrides "
                         "model.pretrained_backbone)")
-    not_ported(t)
+    ranks(t)
 
     e = sub.add_parser("eval", help="evaluate on the test set")
     run(e)
@@ -1145,6 +1284,7 @@ def build_parser():
                    help="BOP VSD errors, recall and AR (models_eval PLY "
                         "meshes)")
     device(s, "torch device of the VSD renders")
+    ranks(s, shards=False)
 
     x = sub.add_parser("export-serving",
                        help="write one object's serving artifact (meta, "
@@ -1152,7 +1292,7 @@ def build_parser():
     base(x)
     x.add_argument("--cls-id", type=int, required=True)
     engine(x)
-    not_ported(x, shards=False)
+    ranks(x, shards=False)
     x.add_argument("--ckpt-root", default="train_log",
                    help="read <ckpt_root>/checkpoints/<object>/latest "
                         "without --torch-checkpoint")
@@ -1197,9 +1337,21 @@ def _traces_cuda(args) -> bool:
 
 
 def main(argv=None):
+    import sys
+
     from gdm_tpu_torch.utils.logging import profiler_trace
 
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    n = getattr(args, "devices", None) or 1
+    if n > 1 and args.command in ("train", "eval", "infer"):
+        if args.multihost:
+            raise SystemExit(f"--devices {n} out of range (1..1 per "
+                             "process)")
+        _check_stacked(args)
+        _check_layout(n, getattr(args, "model_shards", 1), args.batch_size)
+        # the ranks run the command; their outputs are rank 0's files
+        return _spawn_ranks(argv, n, _device(args))
     commands = {"train": train, "eval": evaluate, "infer": infer,
                 "score": score, "export-serving": export_serving,
                 "serve": serve_cmd}

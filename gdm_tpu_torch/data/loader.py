@@ -8,9 +8,11 @@ and a bounded queue holds the batches ready.
   * ``shuffle`` draws each epoch's order from RandomState(seed + epoch)
     (``set_epoch``, as DistributedSampler), the JAX package's order to the
     index; ``rank``/``world`` take an interleaved slice of it;
-  * ``drop_last`` drops the trailing partial batch (training); without it
-    the last batch is partial and :func:`pad_batch` pads it to the
-    engine's batch (evaluation);
+  * ``drop_last`` drops the trailing partial batch (training), and first
+    the last ``len % world`` rows of the order, so that every rank runs
+    the same steps (DistributedSampler's ``drop_last``; the JAX loader
+    slices without it); without it the last batch is partial and
+    :func:`pad_batch` pads it to the engine's batch (evaluation);
   * ``workers='thread'`` (default) decodes in threads: zlib, the C++ PNG
     and JPEG decoders and the large numpy operations release the GIL;
     ``workers='process'`` in processes started with ``spawn`` (never
@@ -97,6 +99,10 @@ class DataLoader:
         n = len(self.dataset)
         order = (np.random.RandomState(self.seed + self.epoch).permutation(n)
                  if self.shuffle else np.arange(n))
+        if self.drop_last:
+            # every rank takes as many rows: a rank with one more would
+            # run a step whose collectives meet the others' next ones
+            order = order[:n - n % self.world]
         return order[self.rank::self.world]
 
     def __len__(self):

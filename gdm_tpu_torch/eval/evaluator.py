@@ -120,6 +120,17 @@ class Evaluator:
             "det": det,
         }
 
+    def gather(self, allgather_fn):
+        """Merge the predictions of every process (gdm_tpu/eval/
+        evaluator.py gather): ``allgather_fn(predictions)`` returns every
+        process's predictions dict (parallel/mesh.all_gather_host).  Each
+        object's frames follow in rank order."""
+        merged = OrderedDict()
+        for preds in allgather_fn(self._predictions):
+            for k, v in preds.items():
+                merged.setdefault(k, OrderedDict()).update(v)
+        self._predictions = merged
+
     def evaluate(self, gts):
         """gts: {obj_name: {file_name: {'R','t','K'}}} (evaluator.py:256-270).
 

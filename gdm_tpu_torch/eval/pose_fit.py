@@ -42,7 +42,8 @@ def fit_poses_from_outputs(cld: torch.Tensor, end_points: dict,
                            mesh_xyz: torch.Tensor,
                            det: torch.Tensor | None = None,
                            refine: str | None = None, icp_iters: int = 10,
-                           icp_reject_dist=0.01):
+                           icp_reject_dist=0.01,
+                           pre_idx: torch.Tensor | None = None):
     """Batched pose fit from GeoMatch outputs (fit_pose_single with the
     batch axis written out, then :func:`apply_refine`).
 
@@ -50,13 +51,18 @@ def fit_poses_from_outputs(cld: torch.Tensor, end_points: dict,
       cld: [B, N, 3]; end_points: {'seg' [B,N,2] logits, 'rgbd' [B,N,C],
       'mesh' [M,C]}; mesh_xyz: [M, 3]; det: [B] 0/1 or None.
       refine, icp_iters, icp_reject_dist: see :func:`apply_refine`.
+      pre_idx: [B, N] correspondences found elsewhere (the mesh-column
+        sharded argmax, parallel/sp.sharded_cosine_argmax), in place of
+        the similarity argmax here.
     Returns:
       (poses [B, 3, 4], weights [B, N], matched vertex ids [B, N] int64)
     """
     b = cld.shape[0]
     fg = torch.argmax(end_points["seg"], dim=-1) == 1
-    idx, _ = cosine_argmax_batched(l2_normalise(end_points["rgbd"]),
-                                   l2_normalise(end_points["mesh"]))
+    idx = pre_idx
+    if idx is None:
+        idx, _ = cosine_argmax_batched(l2_normalise(end_points["rgbd"]),
+                                       l2_normalise(end_points["mesh"]))
     w = fg.to(torch.float32)
     if det is not None:
         w = w * det.to(torch.float32)[:, None]

@@ -4,6 +4,7 @@ from gdm_tpu_torch.losses.awl import AutomaticWeightedLoss
 from gdm_tpu_torch.losses.circle import circle_loss, masked_logsumexp
 from gdm_tpu_torch.losses.focal import focal_loss
 from gdm_tpu_torch.losses.matching import (
+    grid_matching_loss,
     matching_positive_mask,
     matching_positive_mask_depth_scaled,
     matching_positive_mask_sym,
@@ -11,6 +12,6 @@ from gdm_tpu_torch.losses.matching import (
 )
 
 __all__ = ["AutomaticWeightedLoss", "circle_loss", "focal_loss",
-           "masked_logsumexp", "matching_positive_mask",
-           "matching_positive_mask_depth_scaled",
+           "grid_matching_loss", "masked_logsumexp",
+           "matching_positive_mask", "matching_positive_mask_depth_scaled",
            "matching_positive_mask_sym", "pointwise_matching_loss"]

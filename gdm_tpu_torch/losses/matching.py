@@ -27,6 +27,7 @@ import torch
 
 from gdm_tpu_torch.losses.circle import circle_loss
 from gdm_tpu_torch.ops.knn import pairwise_sqdist
+from gdm_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def matching_positive_mask(match_idx: torch.Tensor, mesh_xyz: torch.Tensor,
@@ -92,6 +93,20 @@ def matching_positive_mask_sym(match_idx: torch.Tensor,
     return pos | pad
 
 
+def grid_matching_loss(grid, *args, **kw) -> torch.Tensor:
+    """:func:`pointwise_matching_loss` of the global batch of ``grid``
+    (parallel/mesh.Grid, or None for this batch alone): with several
+    model shards the mesh columns split over the model row
+    (parallel/sp.sharded_matching_loss), else the batch mean reduced over
+    the data column."""
+    if grid is not None and grid.model_shards > 1:
+        from gdm_tpu_torch.parallel.sp import sharded_matching_loss
+
+        return sharded_matching_loss(*args, grid, **kw)
+    return pointwise_matching_loss(
+        *args, group=None if grid is None else grid.data_group, **kw)
+
+
 def pointwise_matching_loss(
     rgbd_features: torch.Tensor,
     mesh_features: torch.Tensor,
@@ -107,6 +122,7 @@ def pointwise_matching_loss(
     rt: torch.Tensor | None = None,
     depth_scaled_r_mm: float | None = None,
     batch_chunk: int | None = None,
+    group=None,
 ) -> torch.Tensor:
     """Batch matching loss (pointwise_feature_matching parity).
 
@@ -123,6 +139,8 @@ def pointwise_matching_loss(
       rt, depth_scaled_r_mm: [B, 3, 4] GT poses and the radius in mm per
         metre of depth: the depth-scaled mask in place of ``positive_r``.
       batch_chunk: elements scored at once (None = the whole batch).
+      group: the process group of the data-parallel ranks, whose batches
+        make the mean together (parallel/mesh.Grid.data_group), or None.
     Returns:
       scalar: mean over valid elements of per-element row means.
     """
@@ -162,4 +180,7 @@ def pointwise_matching_loss(
                       / torch.clamp_min(n_fg, 1))
         weights.append((n_fg >= 3).to(torch.float32))
     losses, weights = torch.cat(losses), torch.cat(weights)
-    return (losses * weights).sum() / torch.clamp_min(weights.sum(), 1.0)
+    num = (losses * weights).sum()
+    num_den = all_reduce_sum(torch.stack([num, weights.sum().to(num.dtype)]),
+                             group)
+    return num_den[0] / torch.clamp_min(num_den[1], 1.0)

@@ -15,6 +15,13 @@ output is widened to f32 before the heads, and the heads, the losses and
 the SplineCNN mesh branch compute in f32.  ``gather_bwd_dtype`` is the
 encoder's gather backward (models/layers.gather_rows).  Parameters stay
 f32 either way, so checkpoints do not depend on either.
+
+In a multi-process run (``grid``, set by parallel/mesh.attach) the
+training losses are those of the global batch: the seg and matching
+means reduce over the data column, and with model shards the matching
+loss splits the mesh columns over the model row
+(parallel/sp.sharded_matching_loss), as the JAX model's
+``matching_loss_fn`` does.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from torch import nn
 from gdm_tpu_torch.losses import (
     AutomaticWeightedLoss,
     focal_loss,
-    pointwise_matching_loss,
+    grid_matching_loss,
 )
 from gdm_tpu_torch.models.ffb6d import FFB6DEmb
 from gdm_tpu_torch.models.layers import DenseBNAct, MLPHead
@@ -84,6 +91,8 @@ class GeoMatch(nn.Module):
             128, (128, 128, 128, feat_dim), final_bias=False)
         self.normalize_feature_layer = DenseBNAct(feat_dim, feat_dim)
         self.seg_layer = MLPHead(128, (128, 128, 128, 2))
+        # the ranks of a multi-process run (parallel/mesh.attach), or None
+        self.grid = None
 
     def encode_mesh(self, mesh: MeshArrays) -> torch.Tensor:
         """Mesh branch alone: [M, feat_dim]."""
@@ -108,12 +117,14 @@ class GeoMatch(nn.Module):
                                    "awl=True")
             # positive_r (neighbor_dis_th x diameter) rides in the inputs:
             # it differs per object
-            match_loss = pointwise_matching_loss(
-                rgbd_features, mesh_features, mesh.xyz, inputs["labels"],
-                inputs["match_idx"], inputs["visible_flag"],
-                inputs["positive_r"], sym_idx=mesh.sym_idx,
-                m=self.circle_m, gamma=self.circle_gamma)
-            seg_loss = focal_loss(out["seg"], inputs["labels"], gamma=2.0)
+            match_loss = grid_matching_loss(
+                self.grid, rgbd_features, mesh_features, mesh.xyz,
+                inputs["labels"], inputs["match_idx"],
+                inputs["visible_flag"], inputs["positive_r"],
+                sym_idx=mesh.sym_idx, m=self.circle_m,
+                gamma=self.circle_gamma)
+            seg_loss = focal_loss(out["seg"], inputs["labels"], gamma=2.0,
+                                  group=self.grid and self.grid.data_group)
             out["loss"] = self.awl(seg_loss, match_loss)
             out["seg_loss"] = seg_loss
             out["match_loss"] = match_loss

@@ -14,6 +14,8 @@ the depth-scaled 3 mm radius under the GT pose ``inputs['RT']``, its rows
 are valid where ``inputs['origin_labels'] == 1``, and the mesh positions
 of the loss are ``mesh_x[:, :3]``.  ``awl.params`` exists only in a model
 built with ``awl=True``.
+In a multi-process run (``grid``) its losses are those of the global
+batch, as GeoMatch's.
 
 ``compute_dtype`` (torch.bfloat16, or None for the parameters' dtype)
 narrows both trunks, the mesh branch's too (unlike the flagship's), as
@@ -33,7 +35,7 @@ from gdm_tpu_torch.constants import IMAGENET_MEAN, IMAGENET_STD
 from gdm_tpu_torch.losses import (
     AutomaticWeightedLoss,
     focal_loss,
-    pointwise_matching_loss,
+    grid_matching_loss,
 )
 from gdm_tpu_torch.models.dgcnn import DgcnnMeshEmb, DgcnnPointEmb
 from gdm_tpu_torch.models.layers import DenseBNAct, MLPHead
@@ -77,6 +79,8 @@ class GeoMatchDGCNN(nn.Module):
             feat_dim, (128, 128, 128, feat_dim), final_bias=False)
         self.normalize_feature_layer = DenseBNAct(feat_dim, feat_dim)
         self.seg_layer = MLPHead(feat_dim, (128, 128, 128, 2))
+        # the ranks of a multi-process run (parallel/mesh.attach), or None
+        self.grid = None
 
     def encode_mesh(self, mesh_x: torch.Tensor,
                     knn_chunk: int = 1024) -> torch.Tensor:
@@ -103,13 +107,14 @@ class GeoMatchDGCNN(nn.Module):
             if self.awl is None:
                 raise RuntimeError("train=True needs a GeoMatchDGCNN built "
                                    "with awl=True")
-            match_loss = pointwise_matching_loss(
-                rgbd_features, mesh_features, mesh_x[:, :3],
+            match_loss = grid_matching_loss(
+                self.grid, rgbd_features, mesh_features, mesh_x[:, :3],
                 inputs["origin_labels"], inputs["match_idx"],
                 inputs["visible_flag"], 0.0, m=self.circle_m,
                 gamma=self.circle_gamma, pad_onehot=True, rt=inputs["RT"],
                 depth_scaled_r_mm=self.positive_r_mm)
-            seg_loss = focal_loss(out["seg"], inputs["labels"], gamma=2.0)
+            seg_loss = focal_loss(out["seg"], inputs["labels"], gamma=2.0,
+                                  group=self.grid and self.grid.data_group)
             out["loss"] = self.awl(seg_loss, match_loss)
             out["seg_loss"] = seg_loss
             out["match_loss"] = match_loss

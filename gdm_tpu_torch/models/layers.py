@@ -13,7 +13,11 @@ the batch mean and the *biased* batch variance, E[x^2] - E[x]^2 in f32
 (or in the input's dtype when that is wider), and moves the running
 statistics by the torch-convention momentum
 ``new = (1 - m) * old + m * batch`` with that same biased variance (where
-``torch.nn.BatchNorm`` would take the unbiased one).  The momentum is an
+``torch.nn.BatchNorm`` would take the unbiased one).  In a data-parallel
+run (``group``) the moments are those of the global batch, as in the
+JAX package, where the batch axis is sharded and XLA reduces over it:
+sum x, sum x^2 and the count are all-reduced over the ranks, so every
+rank moves the same running statistics.  The momentum is an
 attribute that the train step sets each step from its schedule
 (:func:`set_train_step_state`), as the reference's BNMomentumScheduler
 does.
@@ -59,6 +63,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gdm_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 class BatchNorm(nn.Module):
     """Batch norm over one channel axis (default: the last).
@@ -73,6 +79,9 @@ class BatchNorm(nn.Module):
         self.channel_dim = channel_dim
         self.dtype = dtype
         self.momentum = 0.1
+        # the data-parallel ranks whose batches share the training moments
+        # (parallel/mesh.attach), or None: this batch alone
+        self.group = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -87,9 +96,12 @@ class BatchNorm(nn.Module):
             dims = [d for d in range(x.dim())
                     if d != self.channel_dim % x.dim()]
             xa = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xa.mean(dim=dims)
-            var = torch.clamp_min(
-                torch.square(xa).mean(dim=dims) - torch.square(mean), 0.0)
+            if self.group is None:
+                mean = xa.mean(dim=dims)
+                sq_mean = torch.square(xa).mean(dim=dims)
+            else:
+                mean, sq_mean = self._global_moments(xa, dims)
+            var = torch.clamp_min(sq_mean - torch.square(mean), 0.0)
             with torch.no_grad():
                 m = torch.tensor(self.momentum, dtype=torch.float32,
                                  device=x.device)
@@ -105,6 +117,15 @@ class BatchNorm(nn.Module):
         y = ((x - mean.to(dt).view(shape)) * inv.to(dt).view(shape)
              + self.bias.to(dt).view(shape))
         return cast(y, self.dtype)
+
+    def _global_moments(self, xa: torch.Tensor, dims: list[int]):
+        """E[x] and E[x^2] over the batches of every rank of ``group``:
+        one differentiable all-reduce of (sum x, sum x^2, count)."""
+        c = xa.shape[self.channel_dim]
+        stats = all_reduce_sum(torch.cat([
+            xa.sum(dim=dims), torch.square(xa).sum(dim=dims),
+            xa.new_full((1,), xa.numel() // c)]), self.group)
+        return stats[:c] / stats[-1], stats[c:2 * c] / stats[-1]
 
 
 class Dropout(nn.Module):

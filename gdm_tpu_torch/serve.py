@@ -114,11 +114,15 @@ class PoseEngine:
         DGCNN graphs (peak memory; no result changes with it).
       refine: None | 'ransac' | 'icp' | 'meanshift' (eval/pose_fit).
       icp_reject: the ICP correspondence gate in metres.
+      grid: the ranks of a multi-process run (parallel/mesh.Grid): with
+        model shards, each batch's correspondence argmax is split over
+        the model row (every rank of the row runs the same batch).
     """
 
     def __init__(self, config, mesh_fps_mm: np.ndarray, state_dict: dict,
                  device, batch: int, knn_chunk: int = 1024,
-                 refine: str | None = None, icp_reject: float = 0.01):
+                 refine: str | None = None, icp_reject: float = 0.01,
+                 grid=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} asked for, but CUDA is "
@@ -130,6 +134,7 @@ class PoseEngine:
         self.knn_chunk = knn_chunk
         self.fill_depth = bool(config.data.fill_depth)
         self.refine, self.icp_reject = refine, float(icp_reject)
+        self.grid = grid
         self._encode_mesh()
         self.meta = {
             "raw_spec": raw_input_spec(batch, config.data.input_size,
@@ -169,7 +174,7 @@ class PoseEngine:
             poses, self.last_fit = run_inference(
                 self.model, fin, self.mesh, self.mesh_xyz, self.mesh_feats,
                 self.needs_pyramid, self.knn_chunk, self.refine,
-                self.icp_reject)
+                self.icp_reject, self.grid)
         return poses
 
     def run(self, raw: dict) -> np.ndarray:

@@ -13,9 +13,10 @@ train_lm.py:266-290).  One call of ``train_step(state, batch, mesh, rng)``:
      without autograd, in its forward;
   2. the forward in training mode (batch statistics, dropout) gives the
      loss; the BN momentum comes from the schedule at ``state.step`` and
-     the dropout masks from a generator seeded by (rng, state.step), so
-     a resumed run draws the same masks;
-  3. backward, then the Adam(W) update of train/state.py.
+     the dropout masks from a generator seeded by (rng, state.step) (and
+     the data rank), so a resumed run draws the same masks;
+  3. backward (and, over several ranks, the gradients' mean), then the
+     Adam(W) update of train/state.py.
 
 TF32 stays off for matmuls and convolutions inside the step, and bf16
 products accumulate in f32 (serve.full_f32).  Under
@@ -36,6 +37,7 @@ import torch
 from gdm_tpu_torch.data.pipeline import build_pyramid, finalize_batch, \
     to_device
 from gdm_tpu_torch.models.layers import set_train_step_state
+from gdm_tpu_torch.parallel.mesh import Grid, average_gradients
 from gdm_tpu_torch.serve import full_f32
 from gdm_tpu_torch.train.state import TrainState
 
@@ -62,17 +64,22 @@ def train_inputs(fin: dict, positive_r: float,
     return inputs
 
 
-def dropout_generator(rng: int, step: int, device) -> torch.Generator:
+def dropout_generator(rng: int, step: int, device,
+                      data_rank: int = 0) -> torch.Generator:
     """The dropout generator of one step: seeded by (rng, step), as the
-    JAX step folds the step into its dropout key."""
+    JAX step folds the step into its dropout key, and offset by the
+    rank's data rank, so that ranks holding other batch rows draw other
+    masks while the ranks of one model row (the same rows) draw the same
+    ones.  Data rank 0 draws the one-process run's masks."""
     g = torch.Generator(device=device)
-    g.manual_seed((int(rng) << 32 | int(step)) & (2 ** 63 - 1))
+    g.manual_seed(((int(rng) << 32 | int(step))
+                   + int(data_rank) * 0x9E3779B97F4A7C15) & (2 ** 63 - 1))
     return g
 
 
 def make_train_step(bn_momentum_fn, positive_r: float,
                     knn_chunk: int = 1024, fill_depth: bool = False,
-                    needs_pyramid: bool = True):
+                    needs_pyramid: bool = True, grid: Grid | None = None):
     """Returns ``train_step(state, batch, mesh, rng, timing=None) ->
     metrics``.
 
@@ -86,6 +93,11 @@ def make_train_step(bn_momentum_fn, positive_r: float,
     between its phases and adds their milliseconds under 'inputs' (H2D,
     finalize and pyramid), 'forward' (forward and loss), 'backward' and
     'optimizer'.
+
+    ``grid`` (parallel/mesh.Grid, with the model attached to it by
+    parallel/mesh.attach): ``batch`` holds this rank's rows, and after the
+    backward every gradient becomes its mean over the ranks (one
+    all-reduce, inside 'backward'), so every rank takes the same update.
     """
 
     keys = BATCH_KEYS + (("dpt_filled",) if fill_depth else ()) \
@@ -111,12 +123,14 @@ def make_train_step(bn_momentum_fn, positive_r: float,
             clock.lap("inputs")
             model.train()
             set_train_step_state(model, momentum, dropout_generator(
-                rng, state.step, device))
+                rng, state.step, device, grid.data_rank if grid else 0))
             for p in model.parameters():
                 p.grad = None
             out = model(inputs, mesh, train=True, **kw)
             clock.lap("forward")
             out["loss"].backward()
+            if grid is not None:
+                average_gradients(model.parameters(), grid)
             clock.lap("backward")
             state.optimizer.step()
             clock.lap("optimizer")

@@ -337,14 +337,23 @@ def test_vsd_matches_jax_cli(vsd_runs, runs, mode):
 
 
 @pytest.mark.parametrize("extra,err", [
-    (["--multihost"], NotImplementedError),
-    (["--model-shards", "2"], NotImplementedError),
+    (["--multihost", "--devices", "2"], SystemExit),
+    (["--model-shards", "2"], SystemExit),
     (["--device", "cuda"], RuntimeError)])
 def test_unported_options_raise(runs, extra, err):
+    """The layouts the JAX CLI refuses, with its messages: more than one
+    device per process of a multihost run, and model shards that do not
+    divide the ranks (one here); and CUDA where there is none.  (The
+    multi-process runs themselves: tests/test_torch_mp_cli.py and
+    tests/test_torch_sp_cli.py.)"""
     if "cuda" in extra and torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     args = ["eval", *runs["common"], "--device", "cpu", *extra]
-    with pytest.raises(err):
+    match = {"--multihost": r"--devices 2 out of range \(1\.\.1 per "
+                            r"process\)",
+             "--model-shards": "--model-shards 2 does not divide 1 "
+                               "devices"}.get(extra[0])
+    with pytest.raises(err, match=match):
         cli_t.main(args)
 
 

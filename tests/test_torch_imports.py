@@ -1,8 +1,9 @@
 """The PyTorch port runs where JAX is not installed and without the JAX
 package: every module of gdm_tpu_torch (the training, refinement, stacked,
-VSD, YCB-V and serving-CLI slices' included) loads with jax, flax,
-gdm_tpu, cv2, PIL and tabulate blocked, and no source file of the port
-(chip_smoke.py included) imports them: the GPU host has none of them."""
+VSD, YCB-V, serving-CLI and multi-process slices' included) loads with
+jax, flax, gdm_tpu, cv2, PIL and tabulate blocked, and no source file of
+the port (chip_smoke.py included) imports them: the GPU host has none of
+them."""
 
 import os
 import os.path as osp
@@ -32,7 +33,8 @@ def test_every_module_imports_without_jax():
               "ops.visibility", "utils.logging", "ops.prng", "ops.ransac",
               "ops.meanshift", "eval.multimodel", "ops.render_depth",
               "eval.vsd", "data.augment", "train.import_torch",
-              "utils.viz"):
+              "utils.viz", "parallel", "parallel.mesh", "parallel.sp",
+              "dryrun"):
         assert f"gdm_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "for name in ('jax', 'flax', 'gdm_tpu', 'cv2', 'PIL', "

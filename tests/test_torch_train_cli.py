@@ -202,11 +202,23 @@ def test_trained_checkpoint_outputs_match_jax(trained_outputs, key):
     assert H.rel_err(got, ref) <= 1e-4, H.rel_err(got, ref)
 
 
-@pytest.mark.parametrize("flag", [["--devices", "8"],
-                                  ["--multihost"], ["--devices", "2"],
-                                  ["--model-shards", "2"]])
+REFUSED = {
+    ("--devices", "100000"): r"--devices 100000 out of range \(1\.\.",
+    ("--multihost", "--devices", "2"):
+        r"--devices 2 out of range \(1\.\.1 per process\)",
+    ("--devices", "2", "--batch-size", "3"):
+        "batch 3 not divisible by the data-axis size 2",
+    ("--model-shards", "2"): "--model-shards 2 does not divide 1 devices"}
+
+
+@pytest.mark.parametrize("flag", [list(f) for f in REFUSED])
 def test_unported_train_options_raise(runs, flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """What the JAX CLI refuses before it trains, with its messages: more
+    ranks than cores (cards, on a GPU), more than one device per process
+    of a multihost run, a batch the data ranks do not divide, model shards
+    that do not divide the ranks.  (Training on several ranks:
+    tests/test_torch_mp_cli.py, tests/test_torch_sp_cli.py.)"""
+    with pytest.raises(SystemExit, match=REFUSED[tuple(flag)]):
         cli_t.main(["train", "--dataset", "lmo", "--data-root",
                     runs["root"], "--cls-id", "1", "--device", "cpu",
                     *flag])
