@@ -34,7 +34,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    of the phases below.  ``cli export-serving --batch-size 8`` of the
    checkpoint, then ``cli serve`` of the artifact on a thread (its
    PoseService over HTTP).  A warm-up and three requests (batch 8, 3, 1),
-   then 20 timed requests each at b=1 and b=8, must give finite [b, 3, 4]
+   then 10 timed requests each at b=1 and b=8, must give finite [b, 3, 4]
    poses whose R is orthonormal with det +1 (or the miss sentinel); the
    kernel must have launched once per served batch, and every batch's
    correspondences must match the plain argmax on the same features.
@@ -203,15 +203,43 @@ Phases, in order; any failure exits non-zero and prints no result line:
    NCCL (one card: the data-parallel stage on one rank).  A failed check
    or rank fails the run.
 
-``python3 chip_smoke.py parallel`` runs the setup and this phase alone
-(on a host with four cards: its NCCL runs on four ranks), then prints
-the last line.
+   With two or more cards, also ``cli train --dataset lmfull
+   --model-shards 2`` at b=6 on two NCCL ranks for 2 steps (finite
+   losses), each rank's peak device memory beside the same command's on
+   one card.
+
+13. LM-full (last; the preset at its own shapes: 12800 points, 128^2
+   crops, 4096 mesh vertices, 128-d features, f32, exact pyramid,
+   seeded random weights on object 1): a synthetic tree at 480x640
+   (48 ``test`` frames, 24 each of ``real``, ``fuse`` and ``renders``
+   with depth in millimetres, read /1000; a background behind the
+   object in test, real and fuse frames; 1 mm of depth noise).
+   Serving first: ``cli export-serving --dataset lmfull --batch-size 8``
+   and ``cli serve`` of it on a thread, the warm-up, then 10 timed
+   requests each at b=8 and b=1, every served batch held against the
+   plain argmax (p50 and p95 printed).  ``cli eval | infer | score`` at
+   b=8 (every batch held; infer's rows and poses equal eval's, score's
+   recalls equal eval's; device ms per batch and peak memory).  ``cli
+   train`` at b=6 for one epoch of the three train subsets, validating
+   (every batch held; finite losses), then 15 steps on one fixed batch
+   of 6 (finite losses; the step split and peak memory).  One
+   full-width batch of 2 through GeoMatch on the card and on the CPU
+   from the card's inputs and pyramid: seg, rgbd and mesh within
+   LMFULL_TOL.  The kernel alone at [102400,128] x [4096,128] (served
+   and eval b=8) and [76800,128] x [4096,128] (train validation, b=6)
+   beside its plain version, torch.matmul and the bounds.
+
+``python3 chip_smoke.py parallel`` runs the setup and phase 12 alone (on
+a host with four cards: its NCCL runs on four ranks), then prints the
+last line; ``python3 chip_smoke.py lmfull`` runs the setup and phase 13
+alone.
 
 Output: per-request latency lines, then one JSON line with the kernels
 (``launches_serve`` the CLI-served batches, ``launches_profile`` the
 traced eval's, ``launches_bf16`` the bf16 phase's, ``launches_parallel``
-the parallel phase's ranks'), the card's name and power limit, and the
-last line
+the parallel phase's ranks', ``launches_lmfull`` the LM-full phase's
+served, eval, infer and validation batches), the card's name and power
+limit, and the last line
 {"ok": true, "device": {...}}.  Nothing of JAX or of the JAX package is imported: the
 script blocks ``jax``, ``flax`` and ``gdm_tpu`` before any import, so
 only ``gdm_tpu_torch`` runs.
@@ -240,7 +268,7 @@ SCORE_TOL = 1e-5    # |kernel score - plain score|
 POSE_TOL = 1e-5     # |infer pose - eval pose|, same frames and weights
 SEED = 0
 SERVE_BATCH = 8
-LATENCY_REQUESTS = 20    # timed requests at each of b=1 and b=8
+LATENCY_REQUESTS = 10    # timed requests at each of b=1 and b=8
 SERVE_SHAPE = (SERVE_BATCH * 4096, 4096, 128)   # R, M, C served
 EVAL_SHAPE = (128 * 4096, 4096, 128)     # R, M, C at the LM-O eval batch
 EVAL_FRAMES = 160
@@ -1842,8 +1870,8 @@ def write_train_tree(root):
 def loader_stages(cfg, root, n=24):
     """ms/sample of the train loader's stages on one thread: JPEG decode,
     the depth and mask decode, the three crops, the HPR hull, the
-    radius-NN GT match, and whole samples (1 thread, then 8 threads and
-    8 processes over the first two batches)."""
+    radius-NN GT match, and whole samples (1 thread, then 8 threads over
+    the first two batches and 2 processes over the first)."""
     from gdm_tpu_torch.data import bop, crop, gt_gen, imio
     from gdm_tpu_torch.data.dataset import PoseDataset
     from gdm_tpu_torch.data.loader import DataLoader
@@ -1889,14 +1917,15 @@ def loader_stages(cfg, root, n=24):
         ds[i]
     t["whole sample, 1 thread (hull cached after its first use)"] = \
         (time.perf_counter() - t0) * 1e3 / n
-    # two batches each: spawned workers take ~0.4 s per sample of a
-    # 240-sample epoch on the card's host, start-up included
-    ds.annos = ds.annos[:2 * TRAIN_BATCH]
-    for kind in ("thread", "process"):
-        dl = DataLoader(ds, TRAIN_BATCH, num_workers=8, workers=kind)
+    # two batches on 8 threads; one batch on 2 spawned processes, whose
+    # start-up is nearly all of their time (8 processes took ~63-66 s on
+    # the card's host, for one batch as for two)
+    for kind, n, w in (("thread", 2, 8), ("process", 1, 2)):
+        ds.annos = ds.annos[:n * TRAIN_BATCH]
+        dl = DataLoader(ds, TRAIN_BATCH, num_workers=w, workers=kind)
         t0 = time.perf_counter()
         k = sum(b["rgb_u8"].shape[0] for b, _ in dl)
-        t[f"whole sample, 8 {kind} workers, {k} samples (start-up "
+        t[f"whole sample, {w} {kind} workers, {k} samples (start-up "
           f"included)"] = (time.perf_counter() - t0) * 1e3 / k
     for name, ms in t.items():
         log(f"  loader (train mode) {name}: {ms:.3f} ms/sample")
@@ -2056,12 +2085,15 @@ def rel(a, ref, floor=1e-30):
     return float(np.abs(a - ref).max() / max(np.abs(ref).max(), floor))
 
 
-def fixed_batch_steps(cfg, root, n_steps=30, trace=False):
-    """n_steps train steps on one fixed batch of TRAIN_BATCH at full
-    width: the loss must fall (last 5 below the first 5 on average); the
-    step split and device-only samples/s from synchronised timings.  With
-    ``trace``, 3 more steps under torch.profiler: kernel ms per step by
-    name, and the gather backward's index_add_ kernels (indexFunc*)."""
+def fixed_batch_steps(cfg, root, n_steps=30, trace=False,
+                      batch_size=TRAIN_BATCH, pos_r=None, falls=True):
+    """n_steps train steps on one fixed batch of ``batch_size`` at full
+    width: every loss finite and, with ``falls``, the loss must fall
+    (last 5 below the first 5 on average); the step split and device-only
+    samples/s from synchronised timings.  ``pos_r``: the circle-loss
+    radius (default LM-O's object 1's).  With ``trace``, 3 more steps
+    under torch.profiler: kernel ms per step by name, and the gather
+    backward's index_add_ kernels (indexFunc*)."""
     from gdm_tpu_torch.data.dataset import PoseDataset
     from gdm_tpu_torch.data.loader import collate
     from gdm_tpu_torch.train import schedules
@@ -2069,13 +2101,14 @@ def fixed_batch_steps(cfg, root, n_steps=30, trace=False):
     from gdm_tpu_torch.train.step import make_train_step
 
     ds = PoseDataset(cfg, 1, "train", data_root=root)
-    batch, _ = collate([ds[i] for i in range(TRAIN_BATCH)])
+    batch, _ = collate([ds[i] for i in range(batch_size)])
     mesh = object_mesh(cfg, root, "cuda")
     model = train_model(cfg).to("cuda")
     state = create_train_state(model, schedules.cyclic_lr(1e-4, 1e-4, 1),
                                0.0, 5)
     step = make_train_step(schedules.bn_momentum_schedule(
-        batch_size=TRAIN_BATCH), positive_r(cfg), knn_chunk=1024)
+        batch_size=batch_size), positive_r(cfg) if pos_r is None else pos_r,
+        knn_chunk=1024)
     losses, timing = [], {}
     torch.cuda.reset_peak_memory_stats()
     for i in range(n_steps):
@@ -2089,15 +2122,15 @@ def fixed_batch_steps(cfg, root, n_steps=30, trace=False):
     total = sum(split.values())
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    log(f"  fixed batch of {TRAIN_BATCH}, {n_steps} steps: mean loss of the "
+    log(f"  fixed batch of {batch_size}, {n_steps} steps: mean loss of the "
         f"first 5 {first:.4f}, of the last 5 {last:.4f}")
     log(f"  step split (mean of steps 6-{n_steps}, synchronised): "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
-        + f"; total {total:.2f} ms = {TRAIN_BATCH / total * 1e3:.2f} "
+        + f"; total {total:.2f} ms = {batch_size / total * 1e3:.2f} "
         f"samples/s device-only; peak device memory {peak:.2f} GiB")
     if not all(np.isfinite(losses)):
         fail("non-finite train loss on the fixed batch")
-    if not last < first:
+    if falls and not last < first:
         fail(f"overfit check: last-5 mean loss {last} not below first-5 "
              f"mean {first}")
     if trace:
@@ -2109,7 +2142,7 @@ def fixed_batch_steps(cfg, root, n_steps=30, trace=False):
             f"{index_add:.2f} ms ({index_add / k_total:.1%})")
         for name, ms in sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:8]:
             log(f"    {ms:.2f} ms per step ({ms / k_total:.1%}) {name[:100]}")
-    return {"split_ms": split, "device_sps": TRAIN_BATCH / total * 1e3,
+    return {"split_ms": split, "device_sps": batch_size / total * 1e3,
             "first5": first, "last5": last, "peak_gib": peak}
 
 
@@ -3317,6 +3350,282 @@ def ycbv_phase(sim, workdir):
     return launches, n_vsd
 
 
+LMFULL_TEST, LMFULL_TRAIN = 48, 24   # test frames; frames of each train subset
+LMFULL_LATENCY_REQUESTS = 10         # timed requests at each of b=1 and b=8
+LMFULL_SERVE_SHAPE = (8 * 12800, 4096, 128)     # served b=8 and eval b=8
+LMFULL_VAL_SHAPE = (6 * 12800, 4096, 128)       # train validation, b=6
+LMFULL_TOL = 1e-4    # card vs CPU forward on the card's inputs and pyramid
+
+
+def write_lmfull_tree(root, ckpt, n_test=LMFULL_TEST, n_train=LMFULL_TRAIN):
+    """A synthetic LM-full tree for object 1 (ape) at 480x640: ``n_test``
+    ``test`` frames and ``n_train`` frames of each of ``real``, ``fuse``
+    and ``renders`` (depth in mm, read /1000), a background behind the
+    object in test, real and fuse frames, 1 mm of depth noise; and its
+    seeded random checkpoint <ckpt>/ape/geomatch.pth.tar."""
+    from gdm_tpu_torch.configs import LMFULL as cfg
+    from gdm_tpu_torch.data.synthetic import make_object, \
+        write_synthetic_lmfull_root
+
+    write_synthetic_lmfull_root(
+        root, make_object(cfg.data.model_pt_num, np.random.RandomState(SEED)),
+        n_test, n_train, im_hw=cfg.data.img_hw, seed=SEED, obj_id=1)
+    os.makedirs(osp.join(ckpt, "ape"), exist_ok=True)
+    torch.save({"model_state": random_weights(cfg)},
+               osp.join(ckpt, "ape", "geomatch.pth.tar"))
+
+
+def lmfull_serving(sim, root, ckpt, workdir, smi):
+    """``cli export-serving --dataset lmfull --batch-size 8`` and ``cli
+    serve`` of the artifact on a thread: the warm-up, then
+    LMFULL_LATENCY_REQUESTS timed requests each at b=8 and b=1 (128^2
+    crops, 12800 points), every served batch held against the plain
+    argmax and every pose valid.  Returns the launches and latencies."""
+    from gdm_tpu_torch import cli
+    from gdm_tpu_torch.configs import LMFULL as cfg
+    from gdm_tpu_torch.eval import pose_fit
+    from gdm_tpu_torch.server import request_poses
+
+    art_root = osp.join(workdir, "serving_lmfull")
+    im, n_sample = cfg.data.input_size, cfg.data.num_sample_points
+    meta = cli.main(["export-serving", "--dataset", "lmfull", "--data-root",
+                     root, "--torch-checkpoint", ckpt, "--cls-id", "1",
+                     "--batch-size", str(cfg.solver.val_batch_size),
+                     "--exact-knn", "--out", osp.join(art_root, "ape")])
+    log(f"  cli export-serving --dataset lmfull: raw_spec {meta['raw_spec']}")
+    rng = np.random.RandomState(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    sim.cosine_argmax.launches = 0
+    t0 = time.perf_counter()
+    service, server = cli.start_server(cli.build_parser().parse_args(
+        ["serve", "--artifact", art_root, "--port", "0"]))
+    torch.cuda.synchronize()
+    log(f"  cli serve: engine built and warmed up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    engine = service.engines["ape"]
+    check_fit_indices(engine.last_fit, sim, pose_fit, "lmfull warm-up")
+    n_batches = 1
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = "http://%s:%d" % server.server_address[:2]
+    lat = {}
+    try:
+        for b in (cfg.solver.val_batch_size, 1):
+            ms, compute = [], []
+            for _ in range(LMFULL_LATENCY_REQUESTS):
+                raw = make_request(b, im, n_sample, rng)
+                t0 = time.perf_counter()
+                poses, compute_ms = request_poses(url, raw)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                compute.append(compute_ms)
+                check_poses(poses, b)
+                check_fit_indices(engine.last_fit, sim, pose_fit,
+                                  f"lmfull b={b} request {len(ms)}")
+                n_batches += 1
+            lat[b] = {"p50_ms": float(np.percentile(ms, 50)),
+                      "p95_ms": float(np.percentile(ms, 95)),
+                      "compute_p50_ms": float(np.percentile(compute, 50))}
+        launches = sim.cosine_argmax.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    for b, v in lat.items():
+        log(f"  {smi}: LM-full served latency at b={b} over "
+            f"{LMFULL_LATENCY_REQUESTS} requests (client clock, HTTP "
+            f"included): p50 {v['p50_ms']:.2f} ms, p95 {v['p95_ms']:.2f} "
+            f"ms; server compute p50 {v['compute_p50_ms']:.2f} ms")
+    if launches != n_batches:
+        fail(f"lmfull serving: {launches} launches for {n_batches} batches")
+    log(f"  kernel launches in the served run: {launches} (the warm-up and "
+        f"2 x {LMFULL_LATENCY_REQUESTS} requests, each held against the "
+        f"plain argmax); peak device memory {peak:.2f} GiB")
+    return launches, lat
+
+
+def lmfull_eval(sim, root, ckpt, workdir):
+    """``cli eval | infer | score --dataset lmfull`` at the val batch of 8:
+    every batch held against the plain argmax, the infer CSV equal to the
+    eval CSV, the score of it equal to eval's recalls.  Returns the
+    launches, per-batch timing and peak GiB of the eval run."""
+    from gdm_tpu_torch import cli
+    from gdm_tpu_torch.configs import LMFULL as cfg
+
+    batch = cfg.solver.val_batch_size
+    common = ["--dataset", "lmfull", "--data-root", root,
+              "--torch-checkpoint", ckpt, "--cls-id", "1", "--exact-knn",
+              "--num-workers", "8"]
+    out = osp.join(workdir, "lmfull_out")
+    t0 = time.perf_counter()
+    res, launches, peak, check_ms = checked_cli_run(
+        sim, "lmfull eval", ["eval", *common, "--output-dir", out])
+    wall = time.perf_counter() - t0 - sum(check_ms) / 1e3
+    timing = res["timing"]
+    net = [b["device_ms"] - c for b, c in zip(timing, check_ms[1:])]
+    log(f"  cli eval --dataset lmfull (b={batch}, 12800 points, 128^2 "
+        "crops): device ms per batch without the plain checks "
+        f"{np.round(net, 2).tolist()}, median {np.median(net):.2f}; "
+        f"{LMFULL_TEST} frames in {wall:.2f} s end to end; peak device "
+        f"memory {peak:.2f} GiB; kernel launches {launches}, each held "
+        "against the plain argmax")
+    csv = osp.join(out, "gt_lmfull-test.csv")
+    poses = read_csv_poses(csv)
+    if len(poses) != LMFULL_TEST:
+        fail(f"lmfull eval CSV has {len(poses)} rows")
+    check_poses(np.stack(list(poses.values())), LMFULL_TEST)
+    infer_csv = osp.join(workdir, "lmfull_infer.csv")
+    _, n, _, _ = checked_cli_run(sim, "lmfull infer",
+                                 ["infer", *common, "--output", infer_csv])
+    launches += n
+    inferred = read_csv_poses(infer_csv)
+    if list(inferred) != list(poses):
+        fail("lmfull infer CSV rows differ from eval's")
+    dpose = max(float(np.abs(inferred[k] - poses[k]).max()) for k in poses)
+    if dpose > POSE_TOL:
+        fail(f"lmfull infer poses differ from eval's by {dpose}")
+    scored = cli.main(["score", "--dataset", "lmfull", "--data-root", root,
+                       "--cls-id", "1", "--csv", csv])
+    if scored["recalls"] != res["recalls"]:
+        fail("lmfull score of the eval CSV does not reproduce its recalls")
+    log(f"  cli infer: the eval CSV's {len(poses)} rows, max |dpose| "
+        f"{dpose:.3g}; cli score of the eval CSV: eval's recalls")
+    return launches, {"device_ms": net, "peak_gib": peak}
+
+
+def lmfull_train(sim, root, workdir):
+    """``cli train --dataset lmfull`` at b=6 for one epoch (the three
+    train subsets), validating (every batch held against the plain
+    argmax), finite losses; then 10 steps on one fixed batch of 6 for the
+    step split and the peak.  Returns the launches and the numbers."""
+    import json as _json
+
+    from gdm_tpu_torch import refdata
+    from gdm_tpu_torch.configs import LMFULL as cfg
+
+    ckpt_root = osp.join(workdir, "lmfull_train_log")
+    t0 = time.perf_counter()
+    res, launches, peak, _ = checked_cli_run(sim, "lmfull train", [
+        "train", "--dataset", "lmfull", "--data-root", root, "--cls-id", "1",
+        "--epochs", "1", "--eval-every", "1", "--ckpt-root", ckpt_root,
+        "--num-workers", "8"])
+    wall = time.perf_counter() - t0
+    steps = res["timing"]
+    rows = [_json.loads(line) for line in open(
+        osp.join(ckpt_root, "metrics", "ape.jsonl"))]
+    losses = [r["loss"] for r in rows if "loss" in r]
+    step_ms = [r["step_ms"] for r in steps]
+    log(f"  cli train --dataset lmfull (b={cfg.solver.train_batch_size}, "
+        f"{3 * LMFULL_TRAIN} records of real, fuse and renders): "
+        f"{len(steps)} steps in {wall:.2f} s end to end (validation "
+        f"included), step ms {np.round(step_ms, 2).tolist()}; logged losses "
+        f"{[round(x, 4) for x in losses]}; peak device memory {peak:.2f} "
+        f"GiB; validation launches {launches}, each held against the plain "
+        f"argmax; validation {res['objects']['ape']['val']}")
+    if len(steps) != 3 * LMFULL_TRAIN // cfg.solver.train_batch_size \
+            or not losses or not np.isfinite(losses).all():
+        fail(f"lmfull train: {len(steps)} steps, losses {losses}")
+    pos_r = cfg.model.neighbor_dis_th \
+        * refdata.get("lm_full").diameters_mm_by_id[1] / 1000.0
+    fixed = fixed_batch_steps(cfg, root, n_steps=15,
+                              batch_size=cfg.solver.train_batch_size,
+                              pos_r=pos_r, falls=False)
+    return launches, {"step_ms": step_ms, "cli_peak_gib": peak,
+                      "fixed": fixed}
+
+
+def lmfull_card_vs_cpu(root, b=2):
+    """One full-width LM-full batch of ``b`` test frames (12800 points,
+    128^2 crops) through GeoMatch on the card and on the CPU, from the
+    card's finalized inputs and pyramid (a second pyramid would pick its
+    own near-ties): seg, rgbd and mesh within LMFULL_TOL."""
+    from gdm_tpu_torch import weights
+    from gdm_tpu_torch.cli import _fps_mm
+    from gdm_tpu_torch.configs import LMFULL as cfg
+    from gdm_tpu_torch.data.dataset import PoseDataset
+    from gdm_tpu_torch.data.loader import collate
+    from gdm_tpu_torch.data.pipeline import build_pyramid, finalize_batch, \
+        to_device
+    from gdm_tpu_torch.data.ply import load_or_build_fps_mesh
+    from gdm_tpu_torch.models.build import build_model
+    from gdm_tpu_torch.serve import full_f32
+
+    ds = PoseDataset(cfg, 1, "test", data_root=root)
+    batch, _ = collate([ds[i] for i in range(b)])
+    raw = {k: batch[k] for k in ("rgb_u8", "dpt_u16", "dpt_scale", "K_crop",
+                                 "choose", "det")}
+    fps_mm = _fps_mm(load_or_build_fps_mesh(root, 1, cfg.data.model_pt_num))
+    with torch.no_grad(), full_f32():
+        fin = finalize_batch(to_device(raw, "cuda"))
+        inputs = {k: fin[k] for k in ("rgb", "cld_rgb_nrm", "choose")}
+        inputs.update(build_pyramid(fin["cld_rgb_nrm"][..., :3],
+                                    fin["xyz_img"], 1024))
+    sd, outs = None, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        setup = build_model(cfg, fps_mm, dev)
+        if sd is None:
+            weights.init_random_(setup.model,
+                                 torch.Generator().manual_seed(SEED))
+            sd = setup.model.state_dict()
+        setup.model.load_state_dict(sd)
+        model = setup.model.to(dev).eval()
+        with torch.no_grad(), full_f32():
+            out = model({k: v.to(dev) for k, v in inputs.items()},
+                        setup.mesh)
+        outs[dev] = {k: out[k].cpu().numpy() for k in ("seg", "rgbd", "mesh")}
+        log(f"  LM-full card vs CPU: the {dev} forward at b={b} (12800 "
+            f"points, full width) in {time.perf_counter() - t0:.2f} s")
+    errs = {}
+    for key in ("seg", "rgbd", "mesh"):
+        errs[key] = rel(outs["cuda"][key], outs["cpu"][key])
+        if not np.isfinite(outs["cuda"][key]).all() \
+                or errs[key] > LMFULL_TOL:
+            fail(f"LM-full card vs CPU {key}: {errs[key]}")
+    log("  LM-full card vs CPU on the card's pyramid, max|d|/max|ref|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (<= {LMFULL_TOL})")
+    return errs
+
+
+def lmfull_phase(sim, workdir, smi):
+    """The LM-full preset at its own shapes (12800 points, 128^2 crops,
+    4096 mesh vertices, 128-d features, f32, exact pyramid) on object 1:
+    serving (b=8 and b=1), cli eval | infer | score at b=8, cli train at
+    b=6 (validating), 15 fixed-batch steps, the card against the CPU on a
+    full-width batch of 2, and the kernel alone at its two LM-full
+    shapes.  Returns the main-path launches and the kernel-line fields."""
+    root, ckpt = osp.join(workdir, "lmfull"), osp.join(workdir, "ckpt")
+    t0 = time.perf_counter()
+    write_lmfull_tree(root, ckpt)
+    log(f"  synthetic LM-full tree ({LMFULL_TEST} test frames and "
+        f"{LMFULL_TRAIN} each of real, fuse and renders, 480x640) and "
+        f"checkpoint written in {time.perf_counter() - t0:.2f} s")
+    n_serve, lat = lmfull_serving(sim, root, ckpt, workdir, smi)
+    n_eval, ev = lmfull_eval(sim, root, ckpt, workdir)
+    n_train, tr = lmfull_train(sim, root, workdir)
+    errs = lmfull_card_vs_cpu(root)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    peaks = (peak_flops(1024, "dense TF32"), peak_flops())
+    at = {"serve": time_shape(sim, "LM-full serving and eval shape",
+                              LMFULL_SERVE_SHAPE, g, peaks, reps=20),
+          "train_val": time_shape(sim, "LM-full train validation shape",
+                                  LMFULL_VAL_SHAPE, g, peaks, reps=20)}
+    torch.cuda.empty_cache()
+    launches = n_serve + n_eval + n_train
+    log(f"  {smi}: LM-full eval b=8 peak {ev['peak_gib']:.2f} GiB, train "
+        f"b=6 peak {tr['fixed']['peak_gib']:.2f} GiB (fixed batch; cli "
+        f"train {tr['cli_peak_gib']:.2f}); similarity launches on the "
+        f"LM-full main path {launches} (serving {n_serve}, eval and infer "
+        f"{n_eval}, train validation {n_train})")
+    return launches, {
+        "serve": dict(at["serve"], shape=list(LMFULL_SERVE_SHAPE)),
+        "train_val": dict(at["train_val"], shape=list(LMFULL_VAL_SHAPE)),
+        "latency": lat, "eval_peak_gib": ev["peak_gib"],
+        "train_peak_gib": tr["fixed"]["peak_gib"],
+        "card_vs_cpu": errs}
+
+
 PAR_TRAIN_FRAMES, PAR_VAL_FRAMES = 8, 8
 PAR_BATCH = 4            # global: 2 rows per data rank, 2 steps an epoch
 PAR_EVAL_BATCH = 32      # the sharded eval's (both ranks run its rows)
@@ -3704,6 +4013,50 @@ def parallel_runs(backend, world, root, eval_root, ckpt, base):
     return launches, rel, ranks
 
 
+def lmfull_sharded_train(workdir):
+    """``cli train --dataset lmfull --model-shards 2`` at b=6 on two NCCL
+    ranks (cards 0 and 1; each rank holds 2048 of the 4096 mesh columns
+    and all 6 rows) for one epoch of 2 steps, beside the same command on
+    one card in this process: finite losses, and each rank's peak device
+    memory printed beside the one card's.  Returns the peaks (GiB)."""
+    import json as _json
+
+    from gdm_tpu_torch import cli
+
+    root, ckpt = osp.join(workdir, "lmfull_sp"), osp.join(workdir, "ck_sp")
+    write_lmfull_tree(root, ckpt, n_test=8, n_train=4)   # 12 records
+    train = ["train", "--dataset", "lmfull", "--data-root", root,
+             "--cls-id", "1", "--epochs", "1", "--num-workers", "4"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one_root = osp.join(workdir, "lmfull_one")
+    res = cli.main(train + ["--ckpt-root", one_root])
+    one = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "step_ms": [t["step_ms"] for t in res["timing"]]}
+    torch.cuda.empty_cache()                 # rank 0 shares card 0
+    out_dir = osp.join(workdir, "lmfull_sp_out")
+    os.makedirs(out_dir)
+    sp_root = osp.join(workdir, "lmfull_sp_log")
+    ranks = spawn_ranks(2, "nccl", [("lmfull_sharded", train + [
+        "--ckpt-root", sp_root, "--model-shards", "2", "--device",
+        "cuda"])], out_dir)
+    losses = [_json.loads(line)["loss"] for line in open(osp.join(
+        sp_root, "metrics", "ape.jsonl")) if '"loss"' in line]
+    peaks = [r["lmfull_sharded"]["peak_gib"] for r in ranks]
+    steps = [len(r["lmfull_sharded"]["timing"]) for r in ranks]
+    log(f"  LM-full cli train --model-shards 2 at b=6 on 2 NCCL ranks: "
+        f"steps per rank {steps}, step ms "
+        + ", ".join(str(np.round([t["step_ms"] for t in r["lmfull_sharded"]
+                                  ["timing"]], 2).tolist()) for r in ranks)
+        + f", logged losses {[round(x, 4) for x in losses]}; peak device "
+        f"memory per rank {np.round(peaks, 2).tolist()} GiB beside "
+        f"{one['peak_gib']:.2f} GiB on one card (step ms "
+        f"{np.round(one['step_ms'], 2).tolist()})")
+    if steps != [2, 2] or len(losses) == 0 or not np.isfinite(losses).all():
+        fail(f"LM-full sharded train: steps {steps}, losses {losses}")
+    return {"ranks_peak_gib": peaks, "one_card_peak_gib": one["peak_gib"]}
+
+
 def cli_devices_check(root, workdir):
     """``cli train --devices 2`` through the CLI's own spawn (NCCL, cuda:0
     and cuda:1), run as a user runs it (dropout on, torch's TF32
@@ -3808,7 +4161,8 @@ def parallel_phase(sim, eval_dir, workdir, smi):
                                   osp.join(workdir, "nccl"))
         launches += n
         out["nccl"] = {"ranks": world, "first_step_rel": rel,
-                       "cli_devices_rel": cli_devices_check(root, workdir)}
+                       "cli_devices_rel": cli_devices_check(root, workdir),
+                       "lmfull_sharded": lmfull_sharded_train(workdir)}
     else:
         log(f"  {n_cards} card: the NCCL runs need two and did not run")
     out["dryrun_cards"] = run_dryrun(n_cards)
@@ -3852,10 +4206,24 @@ def parallel_alone(sim, smi_line):
     return 0
 
 
+def lmfull_alone(sim, smi_line):
+    """``python3 chip_smoke.py lmfull``: the LM-full phase alone."""
+    log("lmfull phase")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        launches, lm = lmfull_phase(sim, workdir, smi_line)
+    log(f"  phase wall time {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"lmfull": dict(lm, launches_lmfull=launches)}))
+    log(smi_line)
+    ok_line()
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["parallel"]):
-        print("usage: python3 chip_smoke.py [parallel]", file=sys.stderr)
+    if argv not in ([], ["parallel"], ["lmfull"]):
+        print("usage: python3 chip_smoke.py [parallel | lmfull]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3899,6 +4267,8 @@ def main(argv=None) -> int:
 
     if argv == ["parallel"]:
         return parallel_alone(sim, smi_line)
+    if argv == ["lmfull"]:
+        return lmfull_alone(sim, smi_line)
     log("kernel phase")
     err, at, n_hgmma = kernel_phase(sim)
     phase("serving")
@@ -3937,6 +4307,11 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as workdir:
         launches_ycbv, ycbv_stamped = ycbv_phase(sim, workdir)
     launches_vsd["render_depth_scatter"] += ycbv_stamped
+    phase("lmfull")
+    with tempfile.TemporaryDirectory() as workdir:
+        launches_lmfull, lmfull = lmfull_phase(sim, workdir, smi_line)
+    err = max(err, lmfull["serve"]["max_abs_err"],
+              lmfull["train_val"]["max_abs_err"])
     log(f"  phase wall time {time.perf_counter() - t_phase[0]:.1f} s")
 
     # one entry per kernel: the eval shape (batch 128, the main path the
@@ -3951,7 +4326,7 @@ def main(argv=None) -> int:
                      + launches_refine + launches_stacked
                      + launches_vsd["cosine_argmax"] + launches_ycbv
                      + launches_dgcnn + launches_profile + launches_bf16
-                     + launches_parallel),
+                     + launches_parallel + launches_lmfull),
         "launches_eval": launches_eval,
         "launches_serve": launches_serve,
         "launches_profile": launches_profile,
@@ -3963,6 +4338,7 @@ def main(argv=None) -> int:
         "launches_dgcnn": launches_dgcnn,
         "launches_bf16": launches_bf16,
         "launches_parallel": launches_parallel,
+        "launches_lmfull": launches_lmfull,
         "max_abs_err": err,
         "ms": at["eval"]["ms"],
         "plain_ms": at["eval"]["plain_ms"],
@@ -3977,6 +4353,7 @@ def main(argv=None) -> int:
         "serve": dict(at["serve"], shape=list(SERVE_SHAPE)),
         "train_val": dict(at["train_val"], shape=list(TRAIN_VAL_SHAPE)),
         "parallel": par,
+        "lmfull": lmfull,
     }] + [dict({
         "name": name,
         "route": "cuda",

@@ -242,17 +242,21 @@ def _rank_main(rank: int, argv, world: int, store: str, backend: str):
 
 
 def _log_exact_knn(args, cfg, log):
-    """Say where the JAX CLI would build approximate neighbours and the
-    port builds exact ones: the pyramid without --exact-knn, DGCNN's
-    graphs without --exact-knn or model.dgcnn_exact_knn (train too)."""
+    """Say what the port builds where the JAX CLI calls
+    ``lax.approx_max_k``: the pyramid without --exact-knn, DGCNN's graphs
+    without --exact-knn or model.dgcnn_exact_knn (train too).  The port
+    builds the exact top-k, and so does JAX's default off the TPU: XLA's
+    CPU backend computes approx_max_k exactly, and only its TPU backend
+    lowers it to a partial reduction at the recall target
+    (tests/test_torch_lmfull.py holds the two equal)."""
     exact = getattr(args, "exact_knn", None)
+    why = ("what the JAX CLI's default lax.approx_max_k computes off the "
+           "TPU; on a TPU it is a partial reduction at the recall target")
     if cfg.model.backbone == "dgcnn":
         if not (exact or cfg.model.dgcnn_exact_knn):
-            log.info("approximate edge-conv graphs are not ported: the "
-                     "DGCNN graphs are exact (as with --exact-knn)")
+            log.info("the DGCNN graphs are the exact top-k: %s", why)
     elif exact is False:
-        log.info("approximate KNN is not ported: the pyramid is exact "
-                 "(as with --exact-knn)")
+        log.info("the pyramid is the exact top-k: %s", why)
 
 
 def model_config(dataset: str, opts):

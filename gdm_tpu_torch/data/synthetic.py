@@ -106,7 +106,8 @@ def write_synthetic_bop_root(root, mesh_fps, n_frames=96,
                              subsets=("test",), im_hw=(480, 640),
                              K=None, seed=0, z_range=(0.4, 0.6),
                              obj_id=1, splat=3, render_mult=16,
-                             eval_meshes=False, mm_depth=False):
+                             eval_meshes=False, mm_depth=False,
+                             background_z=None, depth_noise=0.0):
     """Fabricate a BOP-format dataset ON DISK at production shapes.
 
     Full-frame rgb / depth (uint16 png, depth_scale 0.1) / mask_visib
@@ -127,6 +128,13 @@ def write_synthetic_bop_root(root, mesh_fps, n_frames=96,
         of the fps points, BOP millimetres).
       mm_depth: depth PNGs in millimetres (depth_scale 1, YCB-V's real
         and synt frames) instead of 0.1 mm counts (depth_scale 0.1).
+      background_z: depth in metres of a flat background facing the
+        camera wherever no object point lands (a captured frame's
+        table and walls); None leaves those pixels without depth, as in
+        an object-only render.  Colour and mask stay the object's.
+      depth_noise: standard deviation in metres of Gaussian noise added
+        to every pixel with depth (a depth sensor's), drawn from a
+        generator of its own so the poses stay those of ``seed``.
 
     Returns the root path.
     """
@@ -138,6 +146,7 @@ def write_synthetic_bop_root(root, mesh_fps, n_frames=96,
                       [0, 0, 1]], np.float32)
     meshes = mesh_fps if isinstance(mesh_fps, dict) else {obj_id: mesh_fps}
     rng = np.random.RandomState(seed)
+    noise = np.random.RandomState(seed + 7919)
     os.makedirs(os.path.join(root, "kps"), exist_ok=True)
     renders = {}
     for oid, fps in meshes.items():
@@ -192,6 +201,12 @@ def write_synthetic_bop_root(root, mesh_fps, n_frames=96,
                         depth[vv[ok], uu[ok]] = z[order][ok]
                         rgb[vv[ok], uu[ok]] = colors[order][ok]
                         mask[vv[ok], uu[ok]] = 255
+                if background_z is not None:
+                    depth[mask == 0] = background_z
+                if depth_noise:
+                    has = depth > 0
+                    depth[has] += noise.normal(0.0, depth_noise,
+                                               int(has.sum()))
                 ys, xs = np.nonzero(mask)
                 bbox = [int(xs.min()), int(ys.min()),
                         int(xs.max() - xs.min() + 1),
@@ -229,6 +244,31 @@ def write_synthetic_bop_root(root, mesh_fps, n_frames=96,
             f.write("\n".join(lines) + "\n")
         with open(os.path.join(root, subset, "real_det.json"), "w") as f:
             json.dump(det, f)
+    return root
+
+
+def write_synthetic_lmfull_root(root, mesh_fps, n_test, n_train,
+                                im_hw=(480, 640), K=None, seed=0, obj_id=1,
+                                background=("test", "real", "fuse")):
+    """An LM-full-shaped BOP tree for one object: ``n_test`` ``test``
+    frames (PNG, depth_scale 0.1) and ``n_train`` frames of each of the
+    preset's train subsets ``real``, ``fuse`` and ``renders`` (PNG, depth
+    in millimetres, depth_scale 1, as LINEMOD's are: the loaders divide
+    those subsets' depth by 1000).  The subsets named in ``background``
+    have a flat background 0.8 m away, so that a crop holds more valid
+    depth than the object, as a captured or fused frame does; the others
+    hold the object alone, as a render does.  Every depth carries 1 mm of
+    noise, as a sensor's does: at LM-full's sampling density the points
+    are nearly the whole pixel lattice, and noise-free depth makes their
+    distances tie in exact arithmetic.
+
+    Returns the root path."""
+    for i, subset in enumerate(("test", "real", "fuse", "renders")):
+        write_synthetic_bop_root(
+            root, mesh_fps, n_train if i else n_test, subsets=(subset,),
+            im_hw=im_hw, K=K, seed=seed + i, obj_id=obj_id,
+            mm_depth=bool(i), depth_noise=0.001,
+            background_z=0.8 if subset in background else None)
     return root
 
 
