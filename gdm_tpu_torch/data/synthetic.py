@@ -1,13 +1,16 @@
-"""A synthetic BOP dataset on disk, for tests and the smoke run.
+"""Synthetic data, for tests, the smoke run and the train-to-pose demo.
 
 Counterpart of gdm_tpu/data/synthetic.py's ``make_object``,
+``render_sample`` and ``make_batch`` (in-memory training batches with GT
+correspondences, bit-equal to the JAX package's for the same arguments),
 ``make_trefoil_mesh`` (the concave VSD rendering workload) and
-``write_synthetic_bop_root``: the same objects, meshes, poses, frames,
-JSONs and detections from the same seed.  Frames are written with the port's own
-encoders (data/imio) where the JAX package calls PIL: PNG, whose files
-differ byte for byte but decode to the same pixels, and, for
-``train_pbr``, baseline JPEG at quality 95 with 4:2:0 chroma (the same
-settings), whose pixels differ by the two encoders' rounding.
+``write_synthetic_bop_root`` (a BOP dataset on disk): the same objects,
+meshes, poses, frames, JSONs and detections from the same seed.  Frames
+are written with the port's own encoders (data/imio) where the JAX
+package calls PIL: PNG, whose files differ byte for byte but decode to
+the same pixels, and, for ``train_pbr``, baseline JPEG at quality 95
+with 4:2:0 chroma (the same settings), whose pixels differ by the two
+encoders' rounding.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import os
 
 import numpy as np
 
+from gdm_tpu_torch.constants import IMAGENET_MEAN, IMAGENET_STD
+from gdm_tpu_torch.data.gt_gen import pose_gt_info, pose_visibility
 from gdm_tpu_torch.data.imio import imwrite_jpeg, imwrite_png
 
 
@@ -32,6 +37,148 @@ def make_object(n_pts: int, rng: np.random.RandomState,
     nrm = dirs
     return np.concatenate(
         [pts * 1000.0, rgb, nrm], axis=1).astype(np.float32)
+
+
+def render_sample(
+    mesh_fps: np.ndarray,
+    pose: np.ndarray,
+    K: np.ndarray,
+    im_size: int = 256,
+    n_sample: int = 4096,
+    bg_depth: float = 1.5,
+    rng: np.random.RandomState | None = None,
+    nn_dist_th: float = 0.01,
+    splat: int = 2,
+    render_pts: np.ndarray | None = None,
+    hpr_radius_param: float = 2.0,
+):
+    """Render one training-style sample dict (host side): a far-to-near
+    splat z-buffer of ``render_pts`` (default the mesh points) over a
+    ``bg_depth`` background, the backprojected crop, normals from depth
+    gradients, points sampled with wrap-pad + shuffle
+    (linemod_pbr.py:476-503) and their GT correspondences (pose_gt_info
+    with HPR visibility).
+
+    Args:
+      mesh_fps: [m, 9] object (xyz mm | rgb | normal).
+      pose: [3, 4] GT pose, camera frame, metres.
+      K: [3, 3] intrinsics for the im_size crop.
+
+    Returns:
+      dict with rgb [S,S,3] (imagenet-normalised), cld_rgb_nrm [N,9],
+      choose [N], xyz_img [S,S,3], labels [N], origin_labels [N],
+      match_idx [N], visible_flag [m], RT [3,4] (the model input
+      contract) and valid (pose_gt_info's).
+    """
+    rng = rng or np.random.RandomState(0)
+    pts = mesh_fps[:, :3] / 1000.0
+    render = mesh_fps if render_pts is None else render_pts
+    rpts = render[:, :3] / 1000.0
+    colors = render[:, 3:6]
+
+    cam_pts = rpts @ pose[:, :3].T + pose[:, 3][None, :]
+    z = cam_pts[:, 2]
+    u = (cam_pts[:, 0] * K[0, 0] / z + K[0, 2]).round().astype(int)
+    v = (cam_pts[:, 1] * K[1, 1] / z + K[1, 2]).round().astype(int)
+
+    depth = np.full((im_size, im_size), bg_depth, np.float32)
+    rgb = np.full((im_size, im_size, 3), 128.0, np.float32)
+    mask = np.zeros((im_size, im_size), np.uint8)
+    order = np.argsort(-z)                                # far to near
+    for du in range(splat):
+        for dv in range(splat):
+            uu = np.clip(u[order] + du, 0, im_size - 1)
+            vv = np.clip(v[order] + dv, 0, im_size - 1)
+            inside = (u[order] + du >= 0) & (u[order] + du < im_size) & \
+                     (v[order] + dv >= 0) & (v[order] + dv < im_size)
+            depth[vv[inside], uu[inside]] = z[order][inside]
+            rgb[vv[inside], uu[inside]] = colors[order][inside]
+            mask[vv[inside], uu[inside]] = 1
+
+    vv_g, uu_g = np.mgrid[:im_size, :im_size].astype(np.float32)
+    x = (uu_g - K[0, 2]) * depth / K[0, 0]
+    y = (vv_g - K[1, 2]) * depth / K[1, 1]
+    xyz_img = np.stack([x, y, depth], axis=-1).astype(np.float32)
+
+    gy, gx = np.gradient(depth)
+    nrm_img = np.stack([-gx, -gy, -np.ones_like(depth)], axis=-1)
+    nrm_img /= np.linalg.norm(nrm_img, axis=-1, keepdims=True)
+
+    choose = np.nonzero((depth > 1e-6).ravel())[0]
+    if len(choose) > n_sample:
+        c_mask = np.zeros(len(choose), int)
+        c_mask[:n_sample] = 1
+        rng.shuffle(c_mask)
+        choose = choose[c_mask.nonzero()[0]]
+    else:
+        choose = np.pad(choose, (0, n_sample - len(choose)), "wrap")
+    rng.shuffle(choose)
+
+    cld = xyz_img.reshape(-1, 3)[choose]
+    rgb_n = ((rgb / 255.0 - IMAGENET_MEAN) / IMAGENET_STD).astype(
+        np.float32)
+    rgb_pt = rgb_n.reshape(-1, 3)[choose]
+    nrm_pt = nrm_img.reshape(-1, 3)[choose]
+    labels_pt = mask.ravel()[choose].astype(np.int32)
+
+    labels, match_idx, visible_flag, valid = pose_gt_info(
+        cld, labels_pt, pose, pts, nn_dist_th=nn_dist_th,
+        visible_flag=lambda: pose_visibility(
+            pose, pts, radius_param=hpr_radius_param))
+
+    return {
+        "rgb": rgb_n.astype(np.float32),
+        "cld_rgb_nrm": np.concatenate(
+            [cld, rgb_pt, nrm_pt], axis=1).astype(np.float32),
+        "choose": choose.astype(np.int32),
+        "xyz_img": xyz_img,
+        "labels": labels.astype(np.int32),
+        "origin_labels": labels_pt,
+        "match_idx": match_idx.astype(np.int32),
+        "visible_flag": visible_flag,
+        "RT": pose.astype(np.float32),
+        "valid": valid,
+    }
+
+
+def make_batch(
+    mesh_fps: np.ndarray,
+    batch: int,
+    K: np.ndarray,
+    im_size: int = 256,
+    n_sample: int = 4096,
+    seed: int = 0,
+    nn_dist_th: float = 0.01,
+    hpr_radius_param: float = 2.0,
+):
+    """Stacked batch of :func:`render_sample` at random poses: rotation i
+    is scipy's ``Rotation.random(random_state=seed * 1000 + i)``, the
+    translation and the sampling draw from ``RandomState(seed)``, the
+    frames are rasterised from a dense point set on the same surface.
+
+    Returns (host_arrays dict without ``valid``, poses [B, 3, 4]).
+    """
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.RandomState(seed)
+    # make_object's radius is a pure function of direction, so fresh
+    # directions sample the same shape
+    radius = float(np.linalg.norm(mesh_fps[:, :3], axis=1).max()) / 1300.0
+    render_pts = make_object(
+        max(16 * mesh_fps.shape[0], 8192), rng, radius=radius)
+    samples = []
+    for i in range(batch):
+        R = Rotation.random(random_state=seed * 1000 + i).as_matrix()
+        t = np.array([rng.uniform(-0.03, 0.03), rng.uniform(-0.03, 0.03),
+                      rng.uniform(0.35, 0.5)])
+        pose = np.hstack([R, t[:, None]]).astype(np.float32)
+        samples.append(render_sample(
+            mesh_fps, pose, K, im_size, n_sample, rng=rng,
+            nn_dist_th=nn_dist_th, render_pts=render_pts,
+            hpr_radius_param=hpr_radius_param))
+    keys = [k for k in samples[0] if k != "valid"]
+    batch_dict = {k: np.stack([s[k] for s in samples]) for k in keys}
+    return batch_dict, batch_dict["RT"]
 
 
 def make_trefoil_mesh(n_u: int = 160, n_v: int = 64, scale: float = 0.02,

@@ -34,7 +34,7 @@ def test_every_module_imports_without_jax():
               "ops.meanshift", "eval.multimodel", "ops.render_depth",
               "eval.vsd", "data.augment", "train.import_torch",
               "utils.viz", "parallel", "parallel.mesh", "parallel.sp",
-              "dryrun"):
+              "dryrun", "train_synthetic_demo", "dress_rehearsal"):
         assert f"gdm_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "for name in ('jax', 'flax', 'gdm_tpu', 'cv2', 'PIL', "
