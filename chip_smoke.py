@@ -239,10 +239,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
    object's diameter and at most half the untrained one.  Prints ADD,
    rotation and translation before and after, steps/s and peak memory.
 
+15. Surface (right after the eval phase, on its tree): every
+   file of tests/data/imio/ (progressive JPEGs of each subsampling, with
+   restart markers and successive approximation, Adam7 PNGs, EXIF
+   orientations in JPEG and PNG, gAMA / sRGB PNGs that libpng reads gray
+   through its gamma tables) read by the port with each of
+   IMREAD_COLOR, IMREAD_GRAYSCALE and IMREAD_UNCHANGED to the sha256
+   that cv2 gave (manifest.json; this host has no cv2).  Then a copy of
+   the eval tree whose ``test`` rgb PNGs are rewritten as Adam7 with an
+   eXIf orientation (1-8 in turn, the pixels stored pre-rotated by its
+   inverse, so the decoded frame is unchanged) and whose depth PNGs as
+   Adam7 (IMREAD_UNCHANGED ignores orientation), by this script's own
+   writer: ``cli eval`` at b=128 on it must give the eval phase's CSV
+   rows exactly (the time column aside), every batch held against the
+   plain argmax.  Last, the device depth fill (ops/depth_fill:
+   fill_in_fast and fill_in_multiscale on a 480x640 depth frame with 30%
+   dropouts, within 1e-6 x max_depth: they filter max_depth - depth)
+   and pointops (farthest_point_sample n 4096 m 1024, equal; ball_query
+   of its 1024 centres, k 16, r 1 cm, and three_nn_interpolate of
+   1024 x 128 features onto the 4096 points, equal beyond near-ties) on
+   the card against the CPU, and the host native k-NN and voxel grid
+   (gdm_tpu_torch.native) against their plain versions, each timed
+   beside the card's name and power limit.
+
 ``python3 chip_smoke.py parallel`` runs the setup and phase 12 alone (on
 a host with four cards: its NCCL runs on four ranks), then prints the
 last line; ``python3 chip_smoke.py lmfull`` runs the setup and phase 13
-alone; ``python3 chip_smoke.py convergence`` runs the setup, phase 14's
+alone; ``python3 chip_smoke.py surface`` runs the setup, the eval tree
+and its ``cli eval``, then phase 15 alone; ``python3 chip_smoke.py
+convergence`` runs the setup, phase 14's
 check on every row of CONVERGENCE_ROWS (flagship and DGCNN, f32 and
 bf16, at the demo's shapes and at LM-full's: 12800 points, 4096
 vertices, b=6, 120 steps), reporting a failed row and going on, then
@@ -257,7 +282,8 @@ Output: per-request latency lines, then one JSON line with the kernels
 traced eval's, ``launches_bf16`` the bf16 phase's, ``launches_parallel``
 the parallel phase's ranks', ``launches_lmfull`` the LM-full phase's
 served, eval, infer and validation batches, ``launches_convergence``
-the convergence phase's two evaluations), the card's name and power
+the convergence phase's two evaluations, ``launches_surface`` the
+surface phase's eval batches), the card's name and power
 limit, and the last line
 {"ok": true, "device": {...}}.  Nothing of JAX or of the JAX package is imported: the
 script blocks ``jax``, ``flax`` and ``gdm_tpu`` before any import, so
@@ -4349,6 +4375,316 @@ def parallel_phase(sim, eval_dir, workdir, smi):
                           shard_plain_ms=plain_ms, shard_bound_ms=bms)
 
 
+# ---------------------------------------------------------------- surface
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+SURFACE_FILL_TOL = 1e-6   # depth fill, card against CPU, x max_depth
+SURFACE_NEAR = 1e-6    # squared-distance gap of a near-tie (f32 expanded)
+
+
+def adam7_png(path, img, orient=None):
+    """Write 8-bit RGB [H, W, 3] or 16-bit gray [H, W] as an interlaced
+    PNG (Adam7, every row filter 0), with an ``eXIf`` chunk holding the
+    EXIF orientation ``orient`` (a little-endian TIFF block) if given."""
+    import struct
+    import zlib
+
+    def chunk(ctype, body):
+        return (struct.pack(">I", len(body)) + ctype + body
+                + struct.pack(">I", zlib.crc32(ctype + body)))
+
+    h, w = img.shape[:2]
+    depth, color_type = (16, 0) if img.dtype == np.uint16 else (8, 2)
+    body = []
+    for x0, y0, dx, dy in ADAM7:
+        sub = img[y0::dy, x0::dx]
+        if sub.size:
+            rows = (sub.astype(">u2") if depth == 16 else sub).reshape(
+                sub.shape[0], -1).view(np.uint8)
+            body.append(np.concatenate(
+                [np.zeros((rows.shape[0], 1), np.uint8), rows], 1).tobytes())
+    exif = b"" if orient is None else chunk(b"eXIf", b"II*\0" + struct.pack(
+        "<IHHHIHHI", 8, 1, 0x0112, 3, 1, orient, 0, 0))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+            ">IIBBBBB", w, h, depth, color_type, 0, 0, 1)) + exif
+            + chunk(b"IDAT", zlib.compress(b"".join(body), 1))
+            + chunk(b"IEND", b""))
+
+
+def stored_for(img, orient):
+    """The array to store under EXIF ``orient`` so that a reader that
+    applies the tag shows ``img`` (the tag's inverse, written with
+    rot90 and flips rather than the port's exif module)."""
+    return {1: img, 2: img[:, ::-1], 3: img[::-1, ::-1], 4: img[::-1],
+            5: img.swapaxes(0, 1), 6: np.rot90(img, 1),
+            7: img.swapaxes(0, 1)[::-1, ::-1], 8: np.rot90(img, -1)}[orient]
+
+
+def csv_rows(path):
+    """A BOP results CSV's rows without the time column."""
+    with open(path) as f:
+        return [line.strip().split(",")[:6] for line in f.readlines()[1:]]
+
+
+def surface_fixtures():
+    """Every file of tests/data/imio/ through the port's readers, each
+    read flag's array to the sha256 that cv2 gave (manifest.json)."""
+    import hashlib
+
+    from gdm_tpu_torch.data import imio
+
+    fixtures = osp.join(ROOT, "tests", "data", "imio")
+    with open(osp.join(fixtures, "manifest.json")) as f:
+        manifest = json.load(f)["files"]
+    t0 = time.perf_counter()
+    for name, flags in sorted(manifest.items()):
+        for mode, want in flags.items():
+            a = np.ascontiguousarray(imio.imread(osp.join(fixtures, name),
+                                                 mode))
+            got = [list(a.shape), str(a.dtype),
+                   hashlib.sha256(a.tobytes()).hexdigest()]
+            if got != [want["shape"], want["dtype"], want["sha256"]]:
+                fail(f"surface: {name} read {mode} gives {got[:2]} "
+                     f"{got[2][:12]}, cv2 gave {want['shape']} "
+                     f"{want['dtype']} {want['sha256'][:12]}")
+    log(f"  {len(manifest)} fixture files (progressive JPEG, Adam7 PNG, "
+        f"EXIF, PNG gamma) x 3 read flags decoded to cv2's sha256 in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    return len(manifest)
+
+
+def surface_tree(eval_dir, workdir):
+    """A copy of the eval tree whose ``test`` rgb PNGs are Adam7 with an
+    eXIf orientation (1-8 in turn, the pixels stored pre-rotated) and
+    whose depth PNGs are Adam7 without one (IMREAD_UNCHANGED ignores
+    it); each rewritten file decodes to the original's array."""
+    import glob
+    import shutil
+
+    from gdm_tpu_torch.data.imio import imread_rgb, imread_u16
+
+    root = osp.join(workdir, "lmo")
+    shutil.copytree(osp.join(eval_dir, "lmo"), root)
+    t0 = time.perf_counter()
+    rgbs = sorted(glob.glob(osp.join(root, "test", "*", "rgb", "*.png")))
+    depths = sorted(glob.glob(osp.join(root, "test", "*", "depth", "*.png")))
+    for i, path in enumerate(rgbs):
+        img, orient = imread_rgb(path), 1 + i % 8
+        adam7_png(path, np.ascontiguousarray(stored_for(img, orient)),
+                  orient)
+        if not np.array_equal(imread_rgb(path), img):
+            fail(f"surface: {path} (Adam7, orientation {orient}) does not "
+                 "decode to the frame written")
+    for path in depths:
+        dep = imread_u16(path)
+        adam7_png(path, dep)
+        if not np.array_equal(imread_u16(path), dep):
+            fail(f"surface: {path} (Adam7 depth) does not decode")
+    log(f"  tree copied: {len(rgbs)} rgb PNGs rewritten as Adam7 with EXIF "
+        f"orientations 1-8, {len(depths)} depth PNGs as Adam7, each read "
+        f"back equal, in {time.perf_counter() - t0:.2f} s")
+    return root
+
+
+def near_tie_rows(tag, got, want, d2, radius=None):
+    """Rows of index arrays [m, k] that differ; each differing pick must
+    be a near-tie in the float64 squared distances d2 [m, n] (or, with a
+    radius, lie within SURFACE_NEAR of the radius squared)."""
+    rows = np.nonzero((got != want).any(-1))[0]
+    for r in rows:
+        dg, dw = d2[r, got[r]], d2[r, want[r]]
+        ok = (got[r] == want[r]) | (np.abs(dg - dw) <= SURFACE_NEAR)
+        if radius is not None:
+            ok |= (np.abs(dg - radius ** 2) <= SURFACE_NEAR) | (
+                np.abs(dw - radius ** 2) <= SURFACE_NEAR)
+        if not ok.all():
+            fail(f"surface: {tag} row {r} differs beyond near-ties")
+    if len(rows) > max(1, len(got) // 100):
+        fail(f"surface: {tag} differs on {len(rows)} of {len(got)} rows")
+    return len(rows)
+
+
+def cpu_ms(fn, *args, reps=3):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn(*args)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def surface_ops(root, smi_line):
+    """The device depth fill (ops/depth_fill) on a 480x640 depth frame of
+    the eval tree with dropouts, and farthest point sampling (n 4096, m
+    1024), ball_query (1024 centres, k 16) and three_nn_interpolate (1024
+    sources of 128 features onto 4096 points) on a seeded 0.1 m cloud:
+    each on the card against the same call on the CPU, and timed."""
+    import glob
+
+    from gdm_tpu_torch.data.imio import imread_u16
+    from gdm_tpu_torch.ops import depth_fill, pointops
+
+    dep = imread_u16(sorted(glob.glob(osp.join(
+        root, "test", "*", "depth", "*.png")))[0]).astype(np.float32) * 1e-4
+    rng = np.random.RandomState(SEED)
+    dep[rng.rand(*dep.shape) < 0.3] = 0.0
+    out = {}
+    d_cpu = torch.from_numpy(dep)
+    d_gpu = d_cpu.cuda()
+    for name, fn, max_depth in (
+            ("fill_in_fast", depth_fill.fill_in_fast, 10.0),
+            ("fill_in_multiscale", depth_fill.fill_in_multiscale, 3.0)):
+        def call(d, fn=fn, max_depth=max_depth):
+            return fn(d, max_depth=max_depth)
+        want, got = call(d_cpu), call(d_gpu).cpu()
+        # the fills filter max_depth - depth and invert back, so f32
+        # rounding scales with max_depth, not with the depth
+        err = float((got - want).abs().max())
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        if not torch.isfinite(got).all() or err > SURFACE_FILL_TOL * max_depth:
+            fail(f"surface: {name} card vs CPU: max |d| {err} m > "
+                 f"{SURFACE_FILL_TOL} x max_depth {max_depth}")
+        out[name] = {"ms": median_ms(call, d_gpu, reps=5, warmup=1),
+                     "cpu_ms": cpu_ms(call, d_cpu), "max_abs_err": err,
+                     "max_rel_err": rel, "max_depth": max_depth,
+                     "shape": list(dep.shape)}
+    xyz = (rng.rand(4096, 3) * 0.1).astype(np.float32)
+    x_cpu = torch.from_numpy(xyz)
+    x_gpu = x_cpu.cuda()
+    fps = pointops.farthest_point_sample(x_gpu, 1024)
+    fps_cpu = pointops.farthest_point_sample(x_cpu, 1024)
+    if not torch.equal(fps.cpu(), fps_cpu):
+        fail("surface: farthest_point_sample card vs CPU indices differ")
+    out["farthest_point_sample"] = {
+        "ms": median_ms(pointops.farthest_point_sample, x_gpu, 1024, reps=3,
+                        warmup=1),
+        "cpu_ms": cpu_ms(pointops.farthest_point_sample, x_cpu, 1024),
+        "n": 4096, "m": 1024}
+    cen = xyz[fps_cpu.numpy()]
+    d2 = ((cen.astype(np.float64)[:, None] - xyz[None]) ** 2).sum(-1)
+    c_cpu, c_gpu = torch.from_numpy(cen), torch.from_numpy(cen).cuda()
+    radius, k = 0.01, 16
+    bq = pointops.ball_query(x_gpu, c_gpu, radius, k).cpu().numpy()
+    bq_cpu = pointops.ball_query(x_cpu, c_cpu, radius, k).numpy()
+    flips = near_tie_rows("ball_query", bq, bq_cpu, d2, radius)
+    out["ball_query"] = {
+        "ms": median_ms(pointops.ball_query, x_gpu, c_gpu, radius, k),
+        "cpu_ms": cpu_ms(pointops.ball_query, x_cpu, c_cpu, radius, k),
+        "near_tie_rows": flips, "m": 1024, "n": 4096, "k": k,
+        "radius": radius}
+    feats = torch.from_numpy(rng.randn(1024, 128).astype(np.float32))
+    f_gpu = feats.cuda()
+    got = pointops.three_nn_interpolate(c_gpu, f_gpu, x_gpu).cpu()
+    want = pointops.three_nn_interpolate(c_cpu, feats, x_cpu)
+    from gdm_tpu_torch.ops.knn import knn
+    nn_g = knn(c_gpu[None], x_gpu[None], 3)[0].cpu().numpy()
+    nn_c = knn(c_cpu[None], x_cpu[None], 3)[0].numpy()
+    d2x = ((xyz.astype(np.float64)[:, None] - cen[None]) ** 2).sum(-1)
+    flips3 = near_tie_rows("three_nn_interpolate's neighbours", nn_g, nn_c,
+                           d2x)
+    same = torch.from_numpy((nn_g == nn_c).all(-1))
+    err = float((got - want)[same].abs().max())
+    if err > 1e-6 * float(want.abs().max()):
+        fail(f"surface: three_nn_interpolate card vs CPU {err}")
+    out["three_nn_interpolate"] = {
+        "ms": median_ms(pointops.three_nn_interpolate, c_gpu, f_gpu, x_gpu),
+        "cpu_ms": cpu_ms(pointops.three_nn_interpolate, c_cpu, feats, x_cpu),
+        "max_abs_err": err, "near_tie_rows": flips3, "src": 1024,
+        "dst": 4096, "c": 128}
+    for name, r in out.items():
+        log(f"  {name}: card {r['ms']:.3f} ms, CPU {r['cpu_ms']:.3f} ms "
+            f"({smi_line})")
+    from gdm_tpu_torch import native
+
+    q = xyz[:1024] + np.float32(1e-3)
+    idx, dist = native.knn(xyz, q, 16, return_dist=True)
+    idx_p, dist_p = native.knn_plain(xyz, q, 16, return_dist=True)
+    sub, sub_p = native.grid_subsample(xyz, 0.005), \
+        native.grid_subsample_plain(xyz, 0.005)
+    if not (np.array_equal(idx, idx_p) and np.array_equal(dist, dist_p)
+            and np.array_equal(sub, sub_p)):
+        fail("surface: gdm_tpu_torch.native differs from its plain version")
+    out["native"] = {"knn_ms": cpu_ms(native.knn, xyz, q, 16),
+                     "grid_subsample_ms": cpu_ms(native.grid_subsample, xyz,
+                                                 0.005),
+                     "voxels": len(sub)}
+    log(f"  native (host): knn 4096 x 1024 queries k 16 "
+        f"{out['native']['knn_ms']:.3f} ms, grid_subsample of 4096 points "
+        f"to {len(sub)} voxels {out['native']['grid_subsample_ms']:.3f} ms, "
+        "both equal to their plain versions")
+    return out
+
+
+def surface_phase(sim, eval_dir, eval_rows, workdir, smi_line):
+    """The file forms and modules that close the port's surface: the
+    committed fixtures to cv2's hashes, ``cli eval`` at the eval batch on
+    an Adam7 + EXIF copy of the eval tree (the eval phase's CSV rows
+    exactly, every batch held against the plain argmax), and the depth
+    fill and pointops card against CPU."""
+    from gdm_tpu_torch import cli
+
+    n_files = surface_fixtures()
+    root = surface_tree(eval_dir, workdir)
+    out = osp.join(workdir, "out")
+    sim.cosine_argmax.launches = 0
+    t0 = time.perf_counter()
+    with FitChecks(sim, "surface eval") as checks:
+        res = cli.main(["eval", "--dataset", "lmo", "--data-root", root,
+                        "--torch-checkpoint", osp.join(eval_dir, "ckpt"),
+                        "--cls-id", "1", "--exact-knn", "--num-workers", "8",
+                        "--output-dir", out])
+    wall = time.perf_counter() - t0
+    launches = sim.cosine_argmax.launches
+    if launches != len(res["timing"]) + 1 or checks.n != launches:
+        fail(f"surface eval: {launches} launches, {checks.n} checked, for "
+             f"{len(res['timing'])} batches + the warm-up")
+    rows = csv_rows(osp.join(out, "gt_lmo-test.csv"))
+    if rows != eval_rows:
+        n_diff = sum(a != b for a, b in zip(rows, eval_rows))
+        fail(f"surface eval: {n_diff} CSV rows of {len(rows)} differ from "
+             f"the eval phase's ({len(eval_rows)} rows)")
+    log(f"  cli eval of the Adam7 + EXIF tree: {len(rows)} CSV rows equal "
+        f"to the eval phase's, {launches} launches each held against the "
+        f"plain argmax, {wall:.2f} s end to end")
+    ops = surface_ops(root, smi_line)
+    return launches, {"fixtures": n_files, "eval_rows": len(rows),
+                      "eval_s": wall, "ops": ops}
+
+
+def surface_alone(sim, smi_line):
+    """``python3 chip_smoke.py surface``: the eval tree, its ``cli eval``
+    for the reference rows, then the surface phase alone."""
+    from gdm_tpu_torch import cli
+
+    log("surface phase")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as eval_dir, \
+            tempfile.TemporaryDirectory() as workdir:
+        write_eval_tree(eval_dir)
+        cli.main(["eval", "--dataset", "lmo", "--data-root",
+                  osp.join(eval_dir, "lmo"), "--torch-checkpoint",
+                  osp.join(eval_dir, "ckpt"), "--cls-id", "1",
+                  "--exact-knn", "--num-workers", "8", "--output-dir",
+                  osp.join(eval_dir, "out")])
+        phase("surface")
+        with tempfile.TemporaryDirectory() as workdir:
+            launches_surface, surface = surface_phase(
+                sim, eval_dir, csv_rows(osp.join(eval_dir, "out",
+                                                 "gt_lmo-test.csv")),
+                workdir, smi_line)
+        t1 = time.perf_counter()
+        launches, res = surface_phase(sim, eval_dir, eval_rows, workdir,
+                                      smi_line)
+        log(f"  surface phase alone {time.perf_counter() - t1:.1f} s")
+    log(f"  phase wall time {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"surface": dict(res, launches=launches)}))
+    log(smi_line)
+    ok_line()
+    return 0
+
+
 def ok_line():
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4413,9 +4749,10 @@ def convergence_alone(sim, smi_line):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["parallel"], ["lmfull"], ["convergence"]):
+    if argv not in ([], ["parallel"], ["lmfull"], ["convergence"],
+                    ["surface"]):
         print("usage: python3 chip_smoke.py [parallel | lmfull | "
-              "convergence]", file=sys.stderr)
+              "convergence | surface]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4440,7 +4777,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     secs = _build.build_all(["similarity", "render_depth", "png_unfilter",
-                             "radius_nn", "jpeg", "depth_fill"])
+                             "radius_nn", "jpeg", "depth_fill", "native"])
     log(f"builds, all at once, in {time.perf_counter() - t0:.2f} s: "
         + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
     for name in ("similarity", "render_depth"):
@@ -4463,6 +4800,8 @@ def main(argv=None) -> int:
         return lmfull_alone(sim, smi_line)
     if argv == ["convergence"]:
         return convergence_alone(sim, smi_line)
+    if argv == ["surface"]:
+        return surface_alone(sim, smi_line)
     log("kernel phase")
     err, at, n_hgmma = kernel_phase(sim)
     phase("serving")
@@ -4474,6 +4813,12 @@ def main(argv=None) -> int:
         launches_serve, _ = serving_phase(sim, eval_dir, smi_line)
         phase("eval")
         launches_eval, eval_timing, eval_peak = eval_phase(sim, eval_dir)
+        phase("surface")
+        with tempfile.TemporaryDirectory() as workdir:
+            launches_surface, surface = surface_phase(
+                sim, eval_dir, csv_rows(osp.join(eval_dir, "out",
+                                                 "gt_lmo-test.csv")),
+                workdir, smi_line)
         phase("profile")
         launches_profile, _, f32_kernels = profile_run(sim, eval_dir,
                                                        smi_line)
@@ -4527,7 +4872,7 @@ def main(argv=None) -> int:
                      + launches_vsd["cosine_argmax"] + launches_ycbv
                      + launches_dgcnn + launches_profile + launches_bf16
                      + launches_parallel + launches_lmfull
-                     + launches_convergence),
+                     + launches_convergence + launches_surface),
         "launches_eval": launches_eval,
         "launches_serve": launches_serve,
         "launches_profile": launches_profile,
@@ -4541,6 +4886,7 @@ def main(argv=None) -> int:
         "launches_parallel": launches_parallel,
         "launches_lmfull": launches_lmfull,
         "launches_convergence": launches_convergence,
+        "launches_surface": launches_surface,
         "max_abs_err": err,
         "ms": at["eval"]["ms"],
         "plain_ms": at["eval"]["plain_ms"],
@@ -4557,6 +4903,7 @@ def main(argv=None) -> int:
         "parallel": par,
         "lmfull": lmfull,
         "convergence": convergence,
+        "surface": surface,
     }] + [dict({
         "name": name,
         "route": "cuda",

@@ -1,4 +1,4 @@
-// Baseline JPEG decode and encode on the host.
+// Baseline and progressive JPEG decode, and baseline encode, on the host.
 //
 // Host code of gdm_tpu_torch/data/imio.py (not a device kernel): the BOP
 // train_pbr frames are JPEG, and the card's host has neither cv2 nor PIL.
@@ -9,12 +9,21 @@
 //     restart markers; 1 (gray) or 3 components;
 //   * dequantisation and the ISLOW integer inverse DCT of jidctint.c
 //     (CONST_BITS 13, PASS1_BITS 2) with its post-IDCT range limit;
-//   * "fancy" triangle upsampling of jdsample.c for 2x1 (4:2:2) and 2x2
-//     (4:2:0) chroma, edge rows and columns replicated as jdmainct.c does;
-//   * the fixed-point YCbCr -> RGB tables of jdcolor.c (SCALEBITS 16).
+//   * "fancy" triangle upsampling of jdsample.c for 2x1 (4:2:2), 2x2
+//     (4:2:0) and 1x2 (4:4:0) chroma, edge rows and columns replicated as
+//     jdmainct.c does, and its box upsampling for other integral factors
+//     (4:1:1) and for chroma at most 2 samples wide;
+//   * the fixed-point YCbCr -> RGB tables of jdcolor.c (SCALEBITS 16);
+//   * progressive scans (SOF2): DC first and refinement, AC first and
+//     refinement with EOB runs (jdphuff.c), into one coefficient buffer
+//     per component that the IDCT reads after the last scan;
+//   * JCS_GRAYSCALE output: the luma plane, or jdcolor.c's rgb_gray of an
+//     Adobe RGB file.
 //
-// Progressive, arithmetic-coded, lossless, hierarchical and 12-bit files
-// return an error code, and the Python wrapper raises naming the file.
+// Arithmetic-coded, lossless, hierarchical, 12-bit and 4-component files,
+// and progressive files whose scans leave low coefficients unrefined
+// (libjpeg-turbo block-smooths those), return an error code, and the
+// Python wrapper raises naming the file.  So do truncated files.
 // Entropy decoding is sequential per bit, which is why this is C++ and
 // not numpy.  The encoder writes baseline files (standard Annex K tables,
 // libjpeg's quality scaling, 4:2:0 or 4:4:4, optional restart interval)
@@ -35,12 +44,13 @@ enum Err {
   OK = 0,
   NOT_JPEG = 1,
   CORRUPT = 2,
-  PROGRESSIVE = 3,
+  SMOOTHING = 3,       // progressive, some low coefficients never refined
   ARITHMETIC = 4,
   PRECISION = 5,
   UNSUPPORTED = 6,
   NO_TABLE = 7,
   TOO_SMALL = 8,
+  BAD_PROGRESSION = 9,  // a scan libjpeg warns of (JWRN_BOGUS_PROGRESSION)
 };
 
 const int kZigzag[64] = {
@@ -154,6 +164,7 @@ struct Comp {
   int cw, ch;                 // samples of the component in the image
   std::vector<int16_t> coef;  // [bh][bw][64], natural order
   int dc_tbl = 0, ac_tbl = 0, pred = 0;
+  int coef_bits[64];          // progressive: Al of the last scan, -1 = none
 };
 
 struct Decoder {
@@ -165,8 +176,11 @@ struct Decoder {
   std::vector<Comp> comps;
   int width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   int restart = 0;
-  int adobe_transform = -1;
+  int adobe_transform = -1;   // APP14 Adobe colour transform, -1 = none
+  bool jfif = false;          // an APP0 JFIF marker
   bool frame = false;
+  bool progressive = false;
+  int eobrun = 0;             // progressive AC scans: blocks left in an EOB run
 };
 
 int read_u16(const uint8_t* p) { return (p[0] << 8) | p[1]; }
@@ -197,9 +211,111 @@ int decode_block(Reader& r, Decoder& D, Comp& c, int16_t* blk) {
   return OK;
 }
 
+// jdphuff.c decode_mcu_DC_first / _DC_refine for one block
+int decode_dc_prog(Reader& r, Decoder& D, Comp& c, int16_t* blk, int ah,
+                   int al) {
+  if (ah == 0) {
+    int s = r.decode(D.dc[c.dc_tbl]);
+    if (s < 0 || s > 11) return CORRUPT;
+    c.pred += s ? extend(r.bits(s), s) : 0;
+    blk[0] = static_cast<int16_t>(static_cast<unsigned>(c.pred) << al);
+  } else if (r.bits(1)) {
+    blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+  }
+  return OK;
+}
+
+// jdphuff.c decode_mcu_AC_first for one block
+int decode_ac_first(Reader& r, Decoder& D, Comp& c, int16_t* blk, int ss,
+                    int se, int al) {
+  if (D.eobrun > 0) {
+    --D.eobrun;
+    return OK;
+  }
+  const Huff& ha = D.ac[c.ac_tbl];
+  for (int k = ss; k <= se; ++k) {
+    int rs = r.decode(ha);
+    if (rs < 0) return CORRUPT;
+    int run = rs >> 4, sz = rs & 15;
+    if (sz) {
+      k += run;
+      if (k > 63) return CORRUPT;
+      int v = extend(r.bits(sz), sz);
+      blk[kZigzag[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << al);
+    } else if (run == 15) {
+      k += 15;
+    } else {
+      D.eobrun = (1 << run) - 1;
+      if (run) D.eobrun += r.bits(run);
+      break;
+    }
+  }
+  return OK;
+}
+
+// jdphuff.c decode_mcu_AC_refine for one block: new coefficients of
+// magnitude 1 << al, and a correction bit for every coefficient already
+// nonzero that the band passes over
+int decode_ac_refine(Reader& r, Decoder& D, Comp& c, int16_t* blk, int ss,
+                     int se, int al) {
+  const int p1 = 1 << al, m1 = -p1;
+  auto refine = [&](int16_t& coef) {
+    if (r.bits(1) && (coef & p1) == 0)
+      coef = static_cast<int16_t>(coef + (coef >= 0 ? p1 : m1));
+  };
+  int k = ss;
+  if (D.eobrun == 0) {
+    const Huff& ha = D.ac[c.ac_tbl];
+    for (; k <= se; ++k) {
+      int rs = r.decode(ha);
+      if (rs < 0) return CORRUPT;
+      int run = rs >> 4, sz = rs & 15, v = 0;
+      if (sz) {
+        v = r.bits(1) ? p1 : m1;      // libjpeg takes any size as 1
+      } else if (run != 15) {
+        D.eobrun = 1 << run;
+        if (run) D.eobrun += r.bits(run);
+        break;
+      }
+      // skip `run` zero coefficients, refining the nonzero ones passed
+      for (; k <= se; ++k) {
+        int16_t& coef = blk[kZigzag[k]];
+        if (coef != 0) {
+          refine(coef);
+        } else if (--run < 0) {
+          break;
+        }
+      }
+      if (v) {
+        if (k > 63) return CORRUPT;
+        blk[kZigzag[k]] = static_cast<int16_t>(v);
+      }
+    }
+  }
+  if (D.eobrun > 0) {
+    for (; k <= se; ++k) {
+      int16_t& coef = blk[kZigzag[k]];
+      if (coef != 0) refine(coef);
+    }
+    --D.eobrun;
+  }
+  return OK;
+}
+
 int decode_scan(Decoder& D, const uint8_t* seg, int seglen, int64_t& pos) {
   int ns = seg[0];
   if (ns < 1 || ns > 4 || seglen < 1 + 2 * ns + 3) return CORRUPT;
+  int ss = seg[1 + 2 * ns], se = seg[2 + 2 * ns];
+  int ah = seg[3 + 2 * ns] >> 4, al = seg[3 + 2 * ns] & 15;
+  // which tables the scan decodes with: a DC refinement reads raw bits
+  bool need_dc = !D.progressive || (ss == 0 && ah == 0);
+  bool need_ac = !D.progressive || ss != 0;
+  if (!D.progressive) {
+    if (ss != 0 || se != 63 || ah != 0 || al != 0) return CORRUPT;
+  } else if ((ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1)) ||
+             (ah != 0 && al != ah - 1) || al > 13) {
+    return CORRUPT;                    // jdphuff.c JERR_BAD_PROGRESSION
+  }
   std::vector<Comp*> sc;
   for (int i = 0; i < ns; ++i) {
     int id = seg[1 + 2 * i], t = seg[2 + 2 * i];
@@ -209,15 +325,30 @@ int decode_scan(Decoder& D, const uint8_t* seg, int seglen, int64_t& pos) {
     if (!c) return CORRUPT;
     c->dc_tbl = t >> 4;
     c->ac_tbl = t & 15;
-    if (c->dc_tbl > 3 || c->ac_tbl > 3 || !D.dc[c->dc_tbl].present ||
-        !D.ac[c->ac_tbl].present)
+    if (c->dc_tbl > 3 || c->ac_tbl > 3 ||
+        (need_dc && !D.dc[c->dc_tbl].present) ||
+        (need_ac && !D.ac[c->ac_tbl].present))
       return NO_TABLE;
     c->pred = 0;
+    if (D.progressive) {
+      // libjpeg-turbo warns and decodes on; such a file (scans dropped or
+      // reordered) decodes to what its bits happen to give, so refuse it
+      if (ss != 0 && c->coef_bits[0] < 0) return BAD_PROGRESSION;
+      for (int k = ss; k <= se; ++k) {
+        if (ah != std::max(c->coef_bits[k], 0)) return BAD_PROGRESSION;
+        c->coef_bits[k] = al;
+      }
+    }
     sc.push_back(c);
   }
-  int ss = seg[1 + 2 * ns], se = seg[2 + 2 * ns], ahal = seg[3 + 2 * ns];
-  if (ss != 0 || se != 63 || ahal != 0) return PROGRESSIVE;
+  D.eobrun = 0;
 
+  auto block = [&](Reader& r, Comp& c, int16_t* blk) {
+    if (!D.progressive) return decode_block(r, D, c, blk);
+    if (ss == 0) return decode_dc_prog(r, D, c, blk, ah, al);
+    return ah == 0 ? decode_ac_first(r, D, c, blk, ss, se, al)
+                   : decode_ac_refine(r, D, c, blk, ss, se, al);
+  };
   Reader r{D.d, D.n, pos};
   int64_t total, per_row;
   if (ns == 1) {               // non-interleaved: the component's own blocks
@@ -230,7 +361,7 @@ int decode_scan(Decoder& D, const uint8_t* seg, int seglen, int64_t& pos) {
   }
   for (int64_t m = 0; m < total; ++m) {
     if (D.restart && m > 0 && m % D.restart == 0) {
-      // expect RSTn: skip to the marker, reset the predictors
+      // expect RSTn: skip to the marker, reset the predictors and EOB run
       int64_t p = r.pos;
       while (p + 1 < D.n && !(D.d[p] == 0xFF && D.d[p + 1] >= 0xD0 &&
                               D.d[p + 1] <= 0xD7))
@@ -239,12 +370,12 @@ int decode_scan(Decoder& D, const uint8_t* seg, int seglen, int64_t& pos) {
       r.pos = p + 2;
       r.reset();
       for (auto* c : sc) c->pred = 0;
+      D.eobrun = 0;
     }
     int64_t my = m / per_row, mx = m % per_row;
     if (ns == 1) {
       Comp& c = *sc[0];
-      int16_t* blk = &c.coef[(my * c.bw + mx) * 64];
-      int e = decode_block(r, D, c, blk);
+      int e = block(r, c, &c.coef[(my * c.bw + mx) * 64]);
       if (e) return e;
     } else {
       for (auto* cp : sc) {
@@ -252,8 +383,7 @@ int decode_scan(Decoder& D, const uint8_t* seg, int seglen, int64_t& pos) {
         for (int by = 0; by < c.v; ++by)
           for (int bx = 0; bx < c.h; ++bx) {
             int64_t row = my * c.v + by, col = mx * c.h + bx;
-            int16_t* blk = &c.coef[(row * c.bw + col) * 64];
-            int e = decode_block(r, D, c, blk);
+            int e = block(r, c, &c.coef[(row * c.bw + col) * 64]);
             if (e) return e;
           }
       }
@@ -266,6 +396,22 @@ int decode_scan(Decoder& D, const uint8_t* seg, int seglen, int64_t& pos) {
     ++p;
   pos = p;
   return OK;
+}
+
+// jdcoefct.c smoothing_ok: libjpeg-turbo block-smooths a progressive
+// image whose DC is known but whose first nine AC coefficients (in zigzag
+// order) are not all refined to the last bit, in some component
+bool needs_smoothing(const Decoder& D) {
+  if (!D.progressive) return false;
+  bool useful = false;
+  for (const auto& c : D.comps) {
+    for (int k = 0; k < 10; ++k)
+      if (D.qt[c.tq][kZigzag[k]] == 0) return false;
+    if (c.coef_bits[0] < 0) return false;
+    for (int k = 1; k < 10; ++k)
+      if (c.coef_bits[k] != 0) useful = true;
+  }
+  return useful;
 }
 
 // jidctint.c jpeg_idct_islow, 8-bit samples
@@ -398,11 +544,8 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
 }
 
 // jdsample.c h2v1_fancy_upsample: one row of cw samples -> 2 cw
+// (cw > 2: narrower components take the box upsampler)
 void up_h2(const uint8_t* in, int cw, uint8_t* out) {
-  if (cw == 1) {
-    out[0] = out[1] = in[0];
-    return;
-  }
   int v = in[0];
   out[0] = static_cast<uint8_t>(v);
   out[1] = static_cast<uint8_t>((v * 3 + in[1] + 2) >> 2);
@@ -420,12 +563,6 @@ void up_h2(const uint8_t* in, int cw, uint8_t* out) {
 // further (in1) input row; bias 8 / 7 alternate as in libjpeg
 void up_h2v2_row(const uint8_t* in0, const uint8_t* in1, int cw,
                  uint8_t* out) {
-  if (cw == 1) {
-    int s = in0[0] * 3 + in1[0];
-    out[0] = static_cast<uint8_t>((s * 4 + 8) >> 4);
-    out[1] = static_cast<uint8_t>((s * 4 + 7) >> 4);
-    return;
-  }
   int this_s = in0[0] * 3 + in1[0];
   int next_s = in0[1] * 3 + in1[1];
   out[0] = static_cast<uint8_t>((this_s * 4 + 8) >> 4);
@@ -462,7 +599,9 @@ int parse(Decoder& D, bool decode_scans) {
     const uint8_t* seg = d + pos + 2;
     int seglen = len - 2;
     pos += len;
-    if (marker == 0xC0 || marker == 0xC1) {            // sequential Huffman
+    if (marker == 0xC0 || marker == 0xC1 || marker == 0xC2) {   // Huffman
+      if (D.frame) return CORRUPT;   // a second frame
+      D.progressive = marker == 0xC2;
       if (seglen < 6) return CORRUPT;
       if (seg[0] != 8) return PRECISION;
       D.height = read_u16(seg + 1);
@@ -479,6 +618,7 @@ int parse(Decoder& D, bool decode_scans) {
         c.h = seg[7 + 3 * i] >> 4;
         c.v = seg[7 + 3 * i] & 15;
         c.tq = seg[8 + 3 * i];
+        std::fill(c.coef_bits, c.coef_bits + 64, -1);
         if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
           return CORRUPT;
         D.hmax = std::max(D.hmax, c.h);
@@ -488,10 +628,8 @@ int parse(Decoder& D, bool decode_scans) {
       D.mcux = (D.width + 8 * D.hmax - 1) / (8 * D.hmax);
       D.mcuy = (D.height + 8 * D.vmax - 1) / (8 * D.vmax);
       for (auto& c : D.comps) {
-        int rh = D.hmax / c.h, rv = D.vmax / c.v;
-        if (D.hmax % c.h || D.vmax % c.v || rh > 2 || rv > 2 ||
-            (rv == 2 && rh == 1))
-          return UNSUPPORTED;        // 4:4:0, 4:1:1 and odder layouts
+        if (D.hmax % c.h || D.vmax % c.v)
+          return UNSUPPORTED;        // fractional sampling ratios
         c.cw = (D.width * c.h + D.hmax - 1) / D.hmax;
         c.ch = (D.height * c.v + D.vmax - 1) / D.vmax;
         c.bw = D.mcux * c.h;
@@ -501,14 +639,12 @@ int parse(Decoder& D, bool decode_scans) {
       }
       D.frame = true;
       if (!decode_scans) return OK;
-    } else if (marker == 0xC2 || marker == 0xC6) {
-      return PROGRESSIVE;
     } else if (marker == 0xC9 || marker == 0xCA || marker == 0xCB ||
                marker == 0xCD || marker == 0xCE || marker == 0xCF ||
                marker == 0xCC) {
       return ARITHMETIC;
-    } else if (marker == 0xC3 || marker == 0xC5 || marker == 0xC7 ||
-               marker == 0xDE || marker == 0xDF) {
+    } else if (marker == 0xC3 || marker == 0xC5 || marker == 0xC6 ||
+               marker == 0xC7 || marker == 0xDE || marker == 0xDF) {
       return UNSUPPORTED;            // lossless, hierarchical
     } else if (marker == 0xC4) {     // DHT
       int p = 0;
@@ -542,6 +678,8 @@ int parse(Decoder& D, bool decode_scans) {
     } else if (marker == 0xEE) {     // APP14 Adobe: colour transform flag
       if (seglen >= 12 && std::memcmp(seg, "Adobe", 5) == 0)
         D.adobe_transform = seg[11];
+    } else if (marker == 0xE0) {     // APP0 JFIF
+      if (seglen >= 14 && std::memcmp(seg, "JFIF", 5) == 0) D.jfif = true;
     } else if (marker == 0xDA) {     // SOS
       if (!D.frame) return CORRUPT;
       for (auto& c : D.comps)
@@ -569,17 +707,20 @@ int gdm_jpeg_info(const uint8_t* data, int64_t len, int32_t* out) {
   return OK;
 }
 
-// Decode to interleaved RGB [height][width][3] (gray replicated), the
-// samples libjpeg-turbo's defaults give.  Returns an Err.
-int gdm_jpeg_decode(const uint8_t* data, int64_t len, uint8_t* rgb,
-                    int64_t cap) {
+// Decode to interleaved RGB [height][width][3] (gray replicated), or with
+// `gray` to one plane [height][width] as libjpeg's JCS_GRAYSCALE output
+// gives it (the luma plane; RGB->Y for an Adobe RGB file), the samples
+// libjpeg-turbo's defaults give.  Returns an Err.
+int gdm_jpeg_decode(const uint8_t* data, int64_t len, uint8_t* out,
+                    int64_t cap, int gray) {
   Decoder D;
   D.d = data;
   D.n = len;
   int e = parse(D, true);
   if (e) return e;
+  if (needs_smoothing(D)) return SMOOTHING;
   const int W = D.width, H = D.height;
-  if (cap < static_cast<int64_t>(W) * H * 3) return TOO_SMALL;
+  if (cap < static_cast<int64_t>(W) * H * (gray ? 1 : 3)) return TOO_SMALL;
   const int nc = static_cast<int>(D.comps.size());
   // inverse DCT of every block into the component planes
   std::vector<std::vector<uint8_t>> planes(nc);
@@ -603,30 +744,66 @@ int gdm_jpeg_decode(const uint8_t* data, int64_t len, uint8_t* rgb,
     tmp.assign(2 * static_cast<size_t>(c.cw) + 2, 0);
     for (int y = 0; y < H; ++y) {
       uint8_t* dst = &full[i][static_cast<size_t>(y) * W];
+      const uint8_t* row = &planes[i][static_cast<size_t>(y / rv) * pw];
       if (rh == 1 && rv == 1) {
-        std::memcpy(dst, &planes[i][static_cast<size_t>(y) * pw], W);
-      } else if (rv == 1) {
-        up_h2(&planes[i][static_cast<size_t>(y) * pw], c.cw, tmp.data());
+        std::memcpy(dst, row, W);
+      } else if (rh == 2 && rv == 1 && c.cw > 2) {
+        up_h2(row, c.cw, tmp.data());
         std::memcpy(dst, tmp.data(), W);
-      } else {
+      } else if (rh == 2 && rv == 2 && c.cw > 2) {
         int iy = y >> 1;
         int other = (y & 1) ? std::min(iy + 1, c.ch - 1) : std::max(iy - 1, 0);
-        up_h2v2_row(&planes[i][static_cast<size_t>(iy) * pw],
-                    &planes[i][static_cast<size_t>(other) * pw], c.cw,
+        up_h2v2_row(row, &planes[i][static_cast<size_t>(other) * pw], c.cw,
                     tmp.data());
         std::memcpy(dst, tmp.data(), W);
+      } else if (rh == 1 && rv == 2) {
+        // jdsample.c h1v2_fancy_upsample (4:4:0): the nearer row 3/4, the
+        // further 1/4, bias 1 above and 2 below
+        int iy = y >> 1;
+        int other = (y & 1) ? std::min(iy + 1, c.ch - 1) : std::max(iy - 1, 0);
+        const uint8_t* far = &planes[i][static_cast<size_t>(other) * pw];
+        const int bias = (y & 1) ? 2 : 1;
+        for (int x = 0; x < W; ++x)
+          dst[x] = static_cast<uint8_t>((row[x] * 3 + far[x] + bias) >> 2);
+      } else {
+        // jdsample.c int_upsample (and h2v1/h2v2_upsample for components
+        // at most two samples wide): each sample repeated rh x rv times
+        for (int x = 0; x < W; ++x) dst[x] = row[x / rh];
       }
     }
   }
   const size_t npx = static_cast<size_t>(W) * H;
-  if (nc == 1) {
+  // jdapimin.c default_decompress_parms: JFIF means YCbCr, else Adobe's
+  // transform 0 or, with neither marker, component ids 'R' 'G' 'B' mean RGB
+  const bool rgb_stored =
+      nc == 3 && !D.jfif &&
+      (D.adobe_transform >= 0
+           ? D.adobe_transform == 0
+           : D.comps[0].id == 'R' && D.comps[1].id == 'G' &&
+                 D.comps[2].id == 'B');
+  if (gray && rgb_stored) {
+    // jdcolor.c rgb_gray_convert: the rgb_ycc_tab luma rows, SCALEBITS 16
+    const int64_t ry = static_cast<int64_t>(0.29900 * 65536 + 0.5),
+                  gy = static_cast<int64_t>(0.58700 * 65536 + 0.5),
+                  by = static_cast<int64_t>(0.11400 * 65536 + 0.5);
     for (size_t p = 0; p < npx; ++p)
-      rgb[3 * p] = rgb[3 * p + 1] = rgb[3 * p + 2] = full[0][p];
+      out[p] = static_cast<uint8_t>(
+          (ry * full[0][p] + gy * full[1][p] + by * full[2][p] + 32768) >>
+          16);
     return OK;
   }
-  if (D.adobe_transform == 0) {      // stored as RGB
+  if (gray) {                        // JCS_YCbCr or gray: the first plane
+    std::memcpy(out, full[0].data(), npx);
+    return OK;
+  }
+  if (nc == 1) {
     for (size_t p = 0; p < npx; ++p)
-      for (int k = 0; k < 3; ++k) rgb[3 * p + k] = full[k][p];
+      out[3 * p] = out[3 * p + 1] = out[3 * p + 2] = full[0][p];
+    return OK;
+  }
+  if (rgb_stored) {                  // stored as RGB
+    for (size_t p = 0; p < npx; ++p)
+      for (int k = 0; k < 3; ++k) out[3 * p + k] = full[k][p];
     return OK;
   }
   // jdcolor.c build_ycc_rgb_table + ycc_rgb_convert
@@ -649,10 +826,10 @@ int gdm_jpeg_decode(const uint8_t* data, int64_t len, uint8_t* rgb,
   };
   for (size_t p = 0; p < npx; ++p) {
     int y = full[0][p], cb = full[1][p], cr = full[2][p];
-    rgb[3 * p] = clamp(y + cr_r[cr]);
-    rgb[3 * p + 1] =
+    out[3 * p] = clamp(y + cr_r[cr]);
+    out[3 * p + 1] =
         clamp(y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> SCALEBITS));
-    rgb[3 * p + 2] = clamp(y + cb_b[cb]);
+    out[3 * p + 2] = clamp(y + cb_b[cb]);
   }
   return OK;
 }

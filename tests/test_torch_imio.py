@@ -2,8 +2,8 @@
 which the JAX package's loader calls: decoded arrays are bit-equal for
 8-bit RGB, RGBA, gray, palette and 16-bit gray files written by PIL and
 by cv2, and for a file that uses every filter type; the writer's files
-decode in cv2 to the array written; interlaced PNGs, progressive JPEGs
-and missing files raise.  JPEG: baseline files decode bit-equal to
+decode in cv2 to the array written; arithmetic-coded, lossless and
+12-bit JPEGs and missing files raise.  JPEG: baseline files decode bit-equal to
 cv2.imread at qualities 50/75/95 in 4:2:0, 4:2:2, 4:4:4 and gray, at an
 odd size and with restart markers, written by cv2, PIL and the port's
 own encoder."""
@@ -151,22 +151,33 @@ def test_imwrite_round_trips_through_cv2(tmp_path, kind):
 
 
 def test_unsupported_inputs_raise(tmp_path):
+    """Arithmetic-coded (SOF9), lossless (SOF3), hierarchical (SOF5) and
+    12-bit JPEGs raise NotImplementedError naming the file (interlaced PNGs and progressive
+    JPEGs decode now: tests/test_torch_imio_forms.py); a missing file
+    raises FileNotFoundError and a corrupt chunk ValueError."""
     rng = np.random.RandomState(0)
     arr = rng.randint(0, 256, (8, 9, 3)).astype(np.uint8)
-    inter = str(tmp_path / "interlaced.png")
-    _write_png(inter, arr, 2, 8, [0], interlace=1)
-    with pytest.raises(NotImplementedError, match="interlaced.png"):
-        imio.imread_rgb(inter)
-    jpg = str(tmp_path / "frame.jpg")
-    cv2.imwrite(jpg, arr, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(NotImplementedError, match="frame.jpg"):
-        imio.imread_rgb(jpg)
+    base = str(tmp_path / "base.jpg")
+    cv2.imwrite(base, arr)
+    data = open(base, "rb").read()
+    sof = data.find(b"\xff\xc0")
+    for name, at, value in (("sof9.jpg", sof + 1, 0xC9),
+                            ("sof3.jpg", sof + 1, 0xC3),
+                            ("sof5.jpg", sof + 1, 0xC5),
+                            ("precision12.jpg", sof + 4, 12)):
+        bad = bytearray(data)
+        bad[at] = value
+        path = str(tmp_path / name)
+        with open(path, "wb") as f:
+            f.write(bad)
+        for reader in (imio.imread_rgb, imio.imread_mask, imio.imread_u16):
+            with pytest.raises(NotImplementedError, match=name):
+                reader(path)
     with pytest.raises(FileNotFoundError):
         imio.imread_u16(str(tmp_path / "missing.png"))
     rgb = str(tmp_path / "rgb.png")
     imio.imwrite_png(rgb, arr)
-    with pytest.raises(ValueError, match="single-channel"):
-        imio.imread_u16(rgb)
+    np.testing.assert_array_equal(imio.imread_u16(rgb), arr[..., ::-1])
     bad = bytearray(open(rgb, "rb").read())
     bad[40] ^= 0xFF                                 # inside IDAT
     with open(rgb, "wb") as f:

@@ -34,7 +34,9 @@ def test_every_module_imports_without_jax():
               "ops.meanshift", "eval.multimodel", "ops.render_depth",
               "eval.vsd", "data.augment", "train.import_torch",
               "utils.viz", "parallel", "parallel.mesh", "parallel.sp",
-              "dryrun", "train_synthetic_demo", "dress_rehearsal"):
+              "dryrun", "train_synthetic_demo", "dress_rehearsal",
+              "data.exif", "ops.depth_fill", "ops.pointops",
+              "ops.subsample", "native"):
         assert f"gdm_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "for name in ('jax', 'flax', 'gdm_tpu', 'cv2', 'PIL', "
